@@ -41,8 +41,8 @@ iv = intrinsic_value(storage, "2025-04-01", 300.0, fwd, rates, None)
 print(f"mixed-ratchet intrinsic NPV: {iv.npv:,.2f}")
 
 # ---- Custom per-period inventory grids: concentrate points near empty,
-# where the value function kinks hardest.  Uniform rows keep the fused
-# TPU kernels; non-uniform rows (like this one) take the general-interp path.
+# where the value function kinks hardest.  Uniform rows keep the Pallas
+# decision kernel; non-uniform rows (like this one) take the general-interp path.
 def bottom_heavy_grid(lower, upper):
     u = np.linspace(0.0, 1.0, 100) ** 1.5
     return lower + (upper - lower) * u

@@ -1,4 +1,4 @@
-"""storage_tpu — TPU-native commodity storage valuation framework.
+"""storage_tpu — commodity storage valuation framework for GPUs in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of the reference
 cmdty/storage library: storage facility modelling (ratchets, forced flows, fuel

@@ -81,7 +81,6 @@ def three_factor_seasonal_value(
     cancellation_poll: tp.Optional[tp.Callable[[], bool]] = None,
     deltas_method: str = "pathwise",
     checkpoint_path: tp.Optional[str] = None,
-    pred_passes: int = 2,
     grid_calc=None,
 ) -> MultiFactorValuationResults:
     """3-factor seasonal LSMC valuation (reference ``multi_factor.py:99-135``).
@@ -108,7 +107,6 @@ def three_factor_seasonal_value(
         cancellation_poll=cancellation_poll,
         deltas_method=deltas_method,
         checkpoint_path=checkpoint_path,
-        pred_passes=pred_passes,
         grid_calc=grid_calc,
     )
 
@@ -137,7 +135,6 @@ def multi_factor_value(
     cancellation_poll: tp.Optional[tp.Callable[[], bool]] = None,
     deltas_method: str = "pathwise",
     checkpoint_path: tp.Optional[str] = None,
-    pred_passes: int = 2,
     grid_calc=None,
 ) -> MultiFactorValuationResults:
     """General multi-factor LSMC valuation (reference ``multi_factor.py:138-168``).
@@ -159,7 +156,7 @@ def multi_factor_value(
 
     ``sim_data_returned`` defaults to ``NONE`` — the reference's own stated
     intent (multi_factor.py:118 "TODO ... change this to default to NONE")
-    and what lets default calls run the streamed/fused fast path; request
+    and what lets default calls run the streamed fast path; request
     panels explicitly to feed ``value_from_sims``.
     """
     factor_corrs = mf.validate_multi_factor_params(factors, factor_corrs)
@@ -213,7 +210,7 @@ def multi_factor_value(
         extra_decisions, num_inventory_grid_points, numerical_tolerance,
         on_progress_update, sim_data_returned, dtype,
         cancellation_poll=cancellation_poll, deltas_method=deltas_method,
-        checkpoint_path=checkpoint_path, pred_passes=pred_passes,
+        checkpoint_path=checkpoint_path,
         stream_provider=stream_provider, antithetic=antithetic,
         grid_calc=grid_calc,
     )
@@ -241,7 +238,6 @@ def value_from_sims(
     cancellation_poll: tp.Optional[tp.Callable[[], bool]] = None,
     deltas_method: str = "pathwise",
     checkpoint_path: tp.Optional[str] = None,
-    pred_passes: int = 2,
     grid_calc=None,
 ) -> MultiFactorValuationResults:
     """Valuation from user-supplied spot/factor simulations (reference
@@ -266,7 +262,7 @@ def value_from_sims(
         extra_decisions, num_inventory_grid_points, numerical_tolerance,
         on_progress_update, sim_data_returned, dtype,
         cancellation_poll=cancellation_poll, deltas_method=deltas_method,
-        checkpoint_path=checkpoint_path, pred_passes=pred_passes,
+        checkpoint_path=checkpoint_path,
         grid_calc=grid_calc,
     )
 
@@ -292,7 +288,6 @@ def value_from_sims_host_local(
     cancellation_poll: tp.Optional[tp.Callable[[], bool]] = None,
     deltas_method: str = "pathwise",
     checkpoint_path: tp.Optional[str] = None,
-    pred_passes: int = 2,
     grid_calc=None,
 ) -> MultiFactorValuationResults:
     """Multi-host ``value_from_sims``: the sim DataFrames are THIS PROCESS's
@@ -328,7 +323,7 @@ def value_from_sims_host_local(
         extra_decisions, num_inventory_grid_points, numerical_tolerance,
         on_progress_update, SimulationDataReturned.NONE, dtype,
         cancellation_poll=cancellation_poll, deltas_method=deltas_method,
-        checkpoint_path=checkpoint_path, pred_passes=pred_passes,
+        checkpoint_path=checkpoint_path,
         grid_calc=grid_calc,
     )
 
@@ -381,7 +376,7 @@ def _panel_gb(spot_reg, factors_reg, dtype) -> float:
 
 def _host_stream_panels(spot_reg, factors_reg, dtype) -> bool:
     """True when materialising the sim panels on device would exceed the
-    streaming threshold (parallel.mesh.STREAM_THRESHOLD_BYTES) — the panels
+    streaming threshold (parallel.mesh.stream_threshold_bytes) — the panels
     then stay host-side numpy and the chunked driver segment-feeds them.
     Multi-process runs shard panels across hosts instead.
 
@@ -392,13 +387,13 @@ def _host_stream_panels(spot_reg, factors_reg, dtype) -> bool:
     hold the WHOLE panel set."""
     if jax.process_count() > 1:
         return False
-    from .parallel.mesh import STREAM_THRESHOLD_BYTES
+    from .parallel.mesh import stream_threshold_bytes
 
     n_dev = len(jax.devices())
     if spot_reg.shape[1] % n_dev != 0:
         n_dev = 1  # sharded path cannot engage; gate on the full footprint
     per_device = _panel_gb(spot_reg, factors_reg, dtype) * 2**30 / n_dev
-    return per_device > STREAM_THRESHOLD_BYTES
+    return per_device > stream_threshold_bytes()
 
 
 def _lsmc_calc(
@@ -420,15 +415,14 @@ def _lsmc_calc(
     cancellation_poll: tp.Optional[tp.Callable[[], bool]] = None,
     deltas_method: str = "pathwise",
     checkpoint_path: tp.Optional[str] = None,
-    pred_passes: int = 2,
     stream_provider=None,
     antithetic: bool = False,
     grid_calc=None,
 ) -> MultiFactorValuationResults:
     # Accepted for API parity; a documented no-op.  The reference uses it to
     # tolerance-snap bang-bang decisions and grid bisection
-    # (StorageHelper.cs:122-165,280-314); the branchless kernels snap
-    # unconditionally and interpolate exactly — equivalence pinned by
+    # (StorageHelper.cs:122-165,280-314); the branchless engine snaps
+    # unconditionally and interpolates exactly — equivalence pinned by
     # tests/test_numerical_tolerance.py.
     del numerical_tolerance
     if checkpoint_path is not None and not isinstance(basis_funcs, str):
@@ -483,12 +477,11 @@ def _lsmc_calc(
 
     monomials = tuple(basis_mod.coerce_basis_functions(basis_funcs))
     if basis_mod.has_generic(monomials):
-        # The fused Pallas kernels evaluate monomial columns on-tile and
-        # cannot call back into user Python; generic basis functions run the
-        # (identical-result) XLA engine path (BasisFunctions.cs:92 analog).
+        # Generic basis functions keep the backward pass on the XLA body
+        # (identical results; BasisFunctions.cs:92 analog).
         logger.info(
             "Generic basis function(s) present (%s): valuation uses the XLA "
-            "engine path instead of the fused Pallas kernels.",
+            "engine path instead of the Pallas decision kernel.",
             ", ".join(str(m) for m in monomials if isinstance(m, basis_mod.GenericBasisFunction)),
         )
     stopwatches = Stopwatches()
@@ -567,10 +560,10 @@ def _lsmc_calc(
         grid_calc=grid_calc,
     )
     # Custom grids whose rows are all evenly spaced keep the fast uniform
-    # (arithmetic-position, Pallas-eligible) interpolation; anything else
+    # (arithmetic-position, kernel-eligible) interpolation; anything else
     # takes the general-interp XLA path.
     uniform_grids = grid_calc is None or _grids_uniform(arrays["grids"])
-    terminal_fn = None if inputs.compiled.must_be_empty_at_end else inputs.compiled.terminal_value
+    terminal_fn = inputs.compiled.engine_terminal_fn
     interactive = (
         (on_progress_update is not None or cancellation_poll is not None)
         and jax.process_count() == 1  # host-chunked loops are per-process
@@ -609,9 +602,9 @@ def _lsmc_calc(
                 int(extra_decisions or 0), bool(discount_deltas), terminal_fn,
                 inputs.compiled.ratchet_is_step,
                 use_pallas=lsmc_engine.resolve_use_pallas(
-                    None, num_sims, arrays["grids"].dtype
+                    None, arrays["grids"].dtype
                 ),
-                pred_passes=int(pred_passes), antithetic=antithetic,
+                antithetic=antithetic,
                 same_sims=same_sims,
                 return_regression=checkpoint_path is not None,
                 segment_cb=segment_cb,
@@ -642,11 +635,9 @@ def _lsmc_calc(
                 inputs.compiled.ratchet_is_step, antithetic=antithetic,
                 same_sims=same_sims, stream=None,  # footprint auto-select
                 return_regression=checkpoint_path is not None,
-                pred_passes=int(pred_passes),
             )
         elif interactive or _host_stream_panels(spot_reg, factors_reg, dtype):
-            # Materialised host-chunked execution (VERDICT r03 items 4 + 8):
-            # per-16-step progress/cancellation granularity (reference
+            # Materialised host-chunked execution: per-16-step progress/cancellation granularity (reference
             # per-period polling, LsmcStorageValuation.cs:343-345,521), and —
             # when the panels exceed the device-memory threshold — host
             # SEGMENT FEEDING: user panels stay in host RAM (numpy) and only
@@ -675,9 +666,8 @@ def _lsmc_calc(
                 int(extra_decisions or 0), bool(discount_deltas), terminal_fn,
                 inputs.compiled.ratchet_is_step,
                 use_pallas=lsmc_engine.resolve_use_pallas(
-                    None, num_sims, arrays["grids"].dtype
+                    None, arrays["grids"].dtype
                 ),
-                pred_passes=int(pred_passes),
                 return_sim_data=wants_sim_data,
                 return_regression=checkpoint_path is not None
                 or (deltas_method == "adjoint" and host_stream),
@@ -696,7 +686,6 @@ def _lsmc_calc(
                 inputs.compiled.ratchet_is_step,
                 return_sim_data=wants_sim_data,
                 return_regression=checkpoint_path is not None,
-                pred_passes=int(pred_passes),
                 uniform_grids=uniform_grids,
             )
         result = {k: np.asarray(v) for k, v in result.items() if v is not None}
@@ -736,7 +725,7 @@ def _lsmc_calc(
                 # averaged across the mesh (parallel.mesh.sharded_ad_deltas;
                 # the differentiated graph is collective-free per shard, so
                 # the same wrapper runs unchanged on the multi-process global
-                # mesh — VERDICT r03 item 5).
+                # mesh).
                 from .parallel import mesh as pmesh
 
                 sim_inputs, reg_key, val_key, same_sims, num_sims = stream_cfg
@@ -756,7 +745,6 @@ def _lsmc_calc(
                     int(extra_decisions or 0), bool(discount_deltas),
                     terminal_fn, inputs.compiled.ratchet_is_step,
                     antithetic=antithetic, same_sims=same_sims,
-                    pred_passes=int(pred_passes),
                 )
             elif jax.process_count() > 1:
                 # Multi-host user panels (value_from_sims_host_local): the
@@ -772,7 +760,6 @@ def _lsmc_calc(
                     int(extra_decisions or 0), bool(discount_deltas),
                     terminal_fn, inputs.compiled.ratchet_is_step,
                     mesh=dist.global_mesh(), uniform_grids=uniform_grids,
-                    pred_passes=int(pred_passes),
                 )
             elif host_stream_used:
                 # Host-resident panels too large for device memory: the
@@ -799,7 +786,6 @@ def _lsmc_calc(
                     int(extra_decisions or 0), bool(discount_deltas),
                     terminal_fn, inputs.compiled.ratchet_is_step,
                     uniform_grids=uniform_grids,
-                    pred_passes=int(pred_passes),
                 )
             result["deltas"] = np.asarray(deltas_ad)
     logger.info(

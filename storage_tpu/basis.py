@@ -5,7 +5,7 @@ compiles to C# delegates with Roslyn (``BasisFunctionsBuilder.cs:90-129``).
 Here the same grammar is parsed into plain monomial descriptors
 ``(spot_power, {factor_index: power})`` — no code generation — and the design
 matrix is evaluated as a vectorised jnp expression (integer powers by repeated
-multiplication so everything fuses on the VPU).
+multiplication so everything fuses into one elementwise kernel).
 """
 from __future__ import annotations
 
@@ -43,9 +43,8 @@ class GenericBasisFunction:
 
     Generic entries compare (and hash) by identity, so repeated-monomial
     validation and jit static-arg caching behave naturally.  Valuations
-    containing a generic basis function run on the XLA engine path — the
-    fused Pallas kernels evaluate monomials on-tile and cannot call back
-    into Python-defined columns (api_lsmc logs the fallback).
+    containing a generic basis function keep the backward decision update
+    on the XLA body (api_lsmc logs the choice).
     """
 
     __slots__ = ("fn", "num_factors", "label")

@@ -261,7 +261,7 @@ def cmd_trinomial(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="storage_tpu",
-        description="TPU-native commodity storage valuation (cmdty/storage analog)",
+        description="Commodity storage valuation on GPUs with JAX (cmdty/storage analog)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 

@@ -326,8 +326,8 @@ class PolynomialInjectWithdrawConstraint(BaseConstraint):
     a piecewise-linear table whose density is chosen ADAPTIVELY: enough points
     that the linear-interpolation error is below float32 resolution of the
     rate scale (making the table the exact polynomial to device precision —
-    the kernels run f32) whenever that fits the 129-node budget the fused
-    kernels unroll over, else the tightest 129-node table.  The realised
+    the engines run f32) whenever that fits a 129-node budget, else the
+    tightest 129-node table.  The realised
     error bound is computable via ``table_error_bound`` (measured-vs-bound
     pinned in tests/test_polynomial_ratchets.py); ``num_table_points``
     overrides the adaptive choice when set (larger tables are fine on the
@@ -336,9 +336,8 @@ class PolynomialInjectWithdrawConstraint(BaseConstraint):
 
     # f32-exactness target for the lerp error, relative to the rate scale.
     _REL_TOL = 2.0**-24
-    # The fused Pallas forward kernel evaluates ratchet tables as a static
-    # select chain over SMEM nodes — keep the adaptive choice within the
-    # width that is known to compile and run well.
+    # The forward pass looks each path's rates up in the table every step
+    # (O(nodes) per path): the budget bounds that work.
     _MAX_TABLE_POINTS = 129
 
     def __init__(self, nodes: tp.Iterable[tp.Tuple[float, float, float]], num_table_points: tp.Optional[int] = None):

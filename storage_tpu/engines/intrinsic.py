@@ -1,8 +1,8 @@
 """Intrinsic storage valuation: deterministic DP on the forward curve.
 
-TPU-native re-design of ``IntrinsicStorageValuation`` (reference
+Accelerator re-design of ``IntrinsicStorageValuation`` (reference
 ``IntrinsicValuation/IntrinsicStorageValuation.cs:120-322``): a ``lax.scan``
-backward over time with the inventory grid vmapped on the VPU, linear
+backward over time with the inventory grid vmapped, linear
 interpolation of the continuation value in inventory, and a forward scan
 re-deriving the optimal decision profile.  All facility data arrives as dense
 per-step arrays (``facility.CompiledStorage``); there are no delegates or
@@ -290,7 +290,7 @@ def intrinsic_valuation(
         "ratchet_min": jnp.asarray(compiled.ratchet_min, dtype),
         "ratchet_max": jnp.asarray(compiled.ratchet_max, dtype),
     }
-    terminal_fn = None if compiled.must_be_empty_at_end else compiled.terminal_value
+    terminal_fn = compiled.engine_terminal_fn
     return _intrinsic_core(
         arrays,
         jnp.asarray(starting_inventory, dtype),

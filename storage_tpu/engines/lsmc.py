@@ -1,13 +1,13 @@
 """Least-Squares Monte Carlo storage valuation engine.
 
-TPU-native re-design of ``LsmcStorageValuation.Calculate``
+Accelerator re-design of ``LsmcStorageValuation.Calculate``
 (reference ``LsmcValuation/LsmcStorageValuation.cs:57-657``):
 
 * backward induction is a single ``lax.scan`` over time; per step the design
   matrix of basis monomials is built on device, continuation values for all
   inventory-grid points are regressed at once via standardised normal
-  equations + Cholesky ([B,S]x[S,G] MXU matmuls replace the reference's
-  per-step MKL QR), and the bang-bang decision argmax runs vmapped over
+  equations + Cholesky ([B,S]x[S,G] matmuls replace the reference's
+  per-step MKL QR), and the bang-bang decision argmax runs over
   (grid x decisions x sims) with the reference's anti-foresight trick: argmax
   on REGRESSED values, realising the ACTUAL simulated continuation
   (LsmcStorageValuation.cs:310-336);
@@ -55,51 +55,31 @@ from ..basis import Monomial, design_matrix, has_generic
 from ..facility import CompiledStorage
 from ..ops import interp
 from ..ops import decision_kernel
-from ..ops import forward_kernel
 from ..models import spot_sim as spot_sim_mod
-from ..ops.regression import (
-    column_stats,
-    fit_continuation,
-    fit_from_moments,
-    predict,
-    standardise_moments,
-)
+from ..ops.regression import column_stats, fit_continuation, predict
 
 NUM_TRIGGER_PRICE_VOLUMES = 10  # LsmcStorageValuation.cs:383
 
 
-def resolve_use_pallas(use_pallas: tp.Optional[bool], num_sims: int, dtype) -> bool:
-    """Auto-enable the fused Pallas decision kernel on TPU backends for f32
-    workloads whose local sim count tiles cleanly; anything else (CPU tests,
-    f64 validation runs, ragged path counts) keeps the pure-XLA path."""
-    if use_pallas is not None:
-        return bool(use_pallas)
-    return (
-        jax.default_backend() == "tpu"
-        and jnp.dtype(dtype) == jnp.float32
-        and decision_kernel.pick_sim_tile(num_sims) > 0
-    )
+def resolve_use_pallas(use_pallas: tp.Optional[bool], dtype) -> bool:
+    """Whether the backward decision update runs the Pallas kernel
+    (ops/decision_kernel).  By default: on a GPU for float32 runs; f64
+    validation runs and the CPU keep the XLA body.  An explicit request
+    where the kernel cannot run raises.  The engine entry points further
+    keep generic bases and non-uniform grids on the XLA body."""
+    if use_pallas is None:
+        return jax.default_backend() == "gpu" and jnp.dtype(dtype) == jnp.float32
+    if use_pallas and not decision_kernel.available():
+        raise ValueError(
+            f"use_pallas=True: the decision kernel needs a GPU backend "
+            f"(have {jax.default_backend()!r})."
+        )
+    return bool(use_pallas)
 
 
-_FULLSTEP_ENV = "STORAGE_TPU_FULLSTEP"
-
-
-def resolve_fullstep(use_fused_moments: bool, axis_name) -> bool:
-    """Kernel v5 — the ENTIRE backward step (moment standardisation +
-    Cholesky solve + coefficient interpolation + decision update + next
-    moments) as one pallas_call.  Opt-in via STORAGE_TPU_FULLSTEP=1:
-    measured ~2% SLOWER than the v4 kernel + XLA glue on v5e (the glue's
-    small ops overlap with the kernel's DMA pipeline, while an in-kernel
-    tile-0 prologue runs serially — docs/ROOFLINE.md round-4 "kernel v5").
-    Kept as working infrastructure: on hardware where per-op XLA latency is
-    worse, or for a future multi-step-fused scan, flipping the env flag
-    re-enables it.  Single-device only (sharded runs psum the moments
-    between steps, which only the XLA glue can do)."""
-    import os
-
-    if os.environ.get(_FULLSTEP_ENV, "0") not in ("1", "true", "True"):
-        return False
-    return use_fused_moments and axis_name is None
+def _kernel_eligible(use_pallas: bool, monomials, uniform_grids: bool = True) -> bool:
+    """Generic basis functions and non-uniform grids keep the XLA body."""
+    return bool(use_pallas) and uniform_grids and not has_generic(monomials)
 
 
 def _pmean(x, axis_name):
@@ -169,14 +149,12 @@ def _terminal_values(terminal_fn, spot_end, grid_end, num_grid, num_sims, dtype)
 
 
 def _backward_prep_one(x, num_extra_decisions: int, ratchet_is_step: bool,
-                       snap_interp: bool, with_w_mat: bool,
                        uniform_grids: bool = True):
-    """Coefficient-INDEPENDENT per-step preparation: decision set, snapped
-    interpolation indices/weights, immediate-PV decomposition (and the dense
-    hat operator for the Pallas kernels).  None of this depends on the scan
-    carry, so it is vmapped over ALL steps before the backward scan — keeping
-    ~30 small [G, D]-sized ops per step out of the sequential loop measured
-    ~15% of the whole backward pass."""
+    """Coefficient-INDEPENDENT per-step preparation: decision set,
+    interpolation indices/weights and the immediate-PV decomposition.  None
+    of this depends on the scan carry, so it is vmapped over ALL steps before
+    the backward scan, keeping ~30 small [G, D]-sized ops per step out of the
+    sequential loop."""
     grid_t = x["grid"]
     min_rate, max_rate = gridmod.ratchet_rates(
         x["ratchet_inv"], x["ratchet_min"], x["ratchet_max"], ratchet_is_step, grid_t
@@ -191,25 +169,13 @@ def _backward_prep_one(x, num_extra_decisions: int, ratchet_is_step: bool,
         interp.interp_weights if uniform_grids else interp.interp_weights_general
     )
     idx_lo, w_hi = weights_fn(x["grid_next"], inv_after)  # [G, D]
-    if snap_interp:
-        # Snapped weights make the hat matrix exactly bf16-representable
-        # (2-pass exact interpolation in the kernel); use the same snapped
-        # quadrature for the coefficient interpolation so regressed and
-        # actual continuations target identical inventories.
-        w_hi = decision_kernel.snap_weights(w_hi)
     a, b, _consumed = _decision_cashflow_coeffs(decisions, x)  # [G, D]
     inv_cost_npv = x["inv_cost_rate"] * grid_t * x["df_flow"]  # [G]
     b = b - inv_cost_npv[:, None]
-    prep = {"idx_lo": idx_lo, "w_hi": w_hi, "prep_a": a, "prep_b": b}
-    if with_w_mat:
-        prep["w_mat"] = decision_kernel.interp_weight_matrix(
-            idx_lo, w_hi, x["grid_next"].shape[0], grid_t.dtype
-        )
-    return prep
+    return {"idx_lo": idx_lo, "w_hi": w_hi, "prep_a": a, "prep_b": b}
 
 
 def _backward_prep_all(per_step, num_extra_decisions: int, ratchet_is_step: bool,
-                       snap_interp: bool, with_w_mat: bool,
                        uniform_grids: bool = True):
     """Vectorise ``_backward_prep_one`` over the step axis ([N, ...] arrays)."""
     keys = (
@@ -220,8 +186,7 @@ def _backward_prep_all(per_step, num_extra_decisions: int, ratchet_is_step: bool
     sub = {k: per_step[k] for k in keys}
     return jax.vmap(
         lambda x: _backward_prep_one(
-            x, num_extra_decisions, ratchet_is_step, snap_interp, with_w_mat,
-            uniform_grids,
+            x, num_extra_decisions, ratchet_is_step, uniform_grids,
         )
     )(sub)
 
@@ -234,137 +199,75 @@ def _interp_coeffs(coeffs, x):
     return coeffs[:, idx_lo] * (1 - w_hi) + coeffs[:, idx_lo + 1] * w_hi  # [B, G, D]
 
 
-def _backward_bodies(
+def decision_update_xla(v_act_next, dm_std, spot, ci, idx_lo, w_hi, a, b):
+    """The backward decision update as plain XLA: ``best_act`` [G, S].
+
+    ``v_act_next`` [G_next, S] next-period values, ``dm_std`` [S, B] the
+    standardised design matrix, ``ci`` [B, G, D] regression coefficients at
+    the (grid, decision) target inventories, ``idx_lo``/``w_hi`` [G, D] their
+    interpolation on the next grid, ``a``/``b`` [G, D] the immediate-PV
+    decomposition.  The reference for ``ops/decision_kernel``."""
+    # HIGHEST: the argmax compares near-equal continuations, and the GPU's
+    # default f32 matmul (TF32) moves them by more than the gaps.
+    pred = jnp.einsum(
+        "sb,bgd->gds", dm_std, ci, precision=jax.lax.Precision.HIGHEST
+    )  # [G, D, S]
+    best_reg = None
+    best_act = None
+    # Unrolled loop over the (small, static) decision axis: running argmax on
+    # regressed values, realising actual values (the anti-foresight trick,
+    # LsmcStorageValuation.cs:327-335) without materialising [G, D, S] twice.
+    # Initialising from decision 0 (not -inf) keeps ties/non-finite
+    # comparisons on the first decision, matching the Pallas kernel.
+    for d in range(idx_lo.shape[1]):
+        lo = idx_lo[:, d]
+        w = w_hi[:, d][:, None]
+        c_act_d = v_act_next[lo] * (1 - w) + v_act_next[lo + 1] * w  # [G, S]
+        imm = a[:, d][:, None] * spot[None, :] + b[:, d][:, None]
+        val_reg = imm + pred[:, d, :]
+        val_act = imm + c_act_d
+        if d == 0:
+            best_reg, best_act = val_reg, val_act
+        else:
+            better = val_reg > best_reg
+            best_reg = jnp.where(better, val_reg, best_reg)
+            best_act = jnp.where(better, val_act, best_act)
+    return best_act
+
+
+def _backward_body(
     monomials: tp.Tuple[Monomial, ...],
     num_extra_decisions: int,
-    ratchet_is_step: bool,
     axis_name: tp.Optional[str],
     use_pallas: bool,
-    snap_interp: bool,
-    pred_passes: int,
-    fullstep: bool = False,
 ):
-    """Shared backward-step closures for the materialised and streamed scans.
-
-    Returns (fused_body, plain_body).  Both take ``(carry, x)`` where ``x``
-    holds the per-step facility scalars, the precomputed prep fields
+    """The backward-step closure shared by the materialised, streamed and
+    host-chunked scans.  It takes ``(v_act_next, x)`` where ``x`` holds the
+    per-step facility scalars, the precomputed prep fields
     (``_backward_prep_all``) and the simulated ``spot`` [S] / ``factors``
-    [F, S] for the step (the fused body additionally reads
-    ``spot_prev``/``factors_prev`` — previous step's slices, clamped to the
-    step itself at t=0)."""
-    num_decisions = 2 * num_extra_decisions + 3
+    [F, S] for the step, and returns the step's values [G, S] and its
+    regression payload.  ``num_extra_decisions`` is implied by the prep
+    fields' decision axis."""
+    del num_extra_decisions
 
-    def fullstep_body(carry, x):
-        # Kernel v5 (single-device): the whole step — glue solve + decision
-        # update + next moments — is ONE pallas_call; the scan body has no
-        # XLA math left (docs/ROOFLINE.md round-4 "kernel v5").
-        v_act_next, xtx_u, xty_u, c, s = carry
-        best_act, xtx_n, xty_n, mean, std, coeffs = (
-            decision_kernel.decision_update_fullstep_pallas(
-                v_act_next, x["spot"], x["factors"],
-                x["spot_prev"], x["factors_prev"],
-                xtx_u, xty_u, c, s,
-                x["w_mat"], x["prep_a"].T, x["prep_b"].T,
-                monomials,
-                sim_tile=decision_kernel.pick_sim_tile(x["spot"].shape[0]),
-                pred_passes=pred_passes,
-            )
-        )
-        return (best_act, xtx_n, xty_n, mean, std), {
-            "mean": mean, "std": std, "coeffs": coeffs,
-        }
-
-    def fused_body(carry, x):
-        # Moments of this step's design matrix (centred/scaled by the NEXT
-        # step's stats, u-coordinates) against the next period's values arrive
-        # in the carry, accumulated inside the previous kernel call; recover
-        # the exactly-standardised system and compose the affine transform.
-        v_act_next, xtx_u, xty_u, c, s = carry
-        xtx_g = _psum(xtx_u, axis_name)
-        xty_g = _psum(xty_u, axis_name)
-        m_std, xty_std, mu_u, sig_u = standardise_moments(xtx_g, xty_g)
-        mean = c + s * mu_u
-        std = s * sig_u
-        coeffs = fit_from_moments(m_std, xty_std)  # [B, G]
-
-        ci = _interp_coeffs(coeffs, x)
-        a, b = x["prep_a"], x["prep_b"]
-        spot = x["spot"]
-        best_act, xtx_next, xty_next = decision_kernel.decision_update_moments_pallas(
-            v_act_next, spot, x["factors"], x["spot_prev"], x["factors_prev"],
-            mean, std, x["w_mat"], jnp.transpose(ci, (2, 1, 0)), a.T, b.T,
-            monomials, sim_tile=decision_kernel.pick_sim_tile(spot.shape[0]),
-            pred_passes=pred_passes,
-        )
-        return (best_act, xtx_next, xty_next, mean, std), {
-            "mean": mean, "std": std, "coeffs": coeffs,
-        }
-
-    if fullstep:
-        return fullstep_body, None
-
-    def plain_body(v_act_next, x):
+    def body(v_act_next, x):
         # Regression of next-period value on this period's state
         # (LsmcStorageValuation.cs:191-212, via normal equations).
         dm = design_matrix(monomials, x["spot"], x["factors"])  # [S, B]
         mean, std = column_stats(dm, axis_name)
         dm_std = (dm - mean) / std
         coeffs = fit_continuation(dm_std, v_act_next.T, axis_name)  # [B, G]
-
-        ci = _interp_coeffs(coeffs, x)
-        idx_lo, w_hi = x["idx_lo"], x["w_hi"]
-        a, b = x["prep_a"], x["prep_b"]
-
-        spot = x["spot"]  # [S]
+        ci = _interp_coeffs(coeffs, x)  # [B, G, D]
+        args = (x["spot"], ci, x["idx_lo"], x["w_hi"], x["prep_a"], x["prep_b"])
         if use_pallas:
-            # Fused VMEM-resident decision update: no [G, D, S] HBM temporaries.
-            best_act = decision_kernel.decision_update_pallas(
-                v_act_next, dm_std.T, spot,
-                x["w_mat"], jnp.transpose(ci, (2, 1, 0)), a.T, b.T,
-                sim_tile=decision_kernel.pick_sim_tile(spot.shape[0]),
-                pred_passes=pred_passes,
+            best_act = decision_kernel.decision_update_auto(
+                v_act_next, dm_std.T, *args
             )
-            return best_act, {"mean": mean, "std": std, "coeffs": coeffs}
-
-        pred = jnp.einsum(
-            "sb,bgd->gds", dm_std, ci, precision=jax.lax.Precision.HIGH
-        )  # [G, D, S]
-        best_reg = None
-        best_act = None
-        # Unrolled loop over the (small, static) decision axis: running argmax on
-        # regressed values, realising actual values (the anti-foresight trick,
-        # LsmcStorageValuation.cs:327-335) without materialising [G, D, S] twice.
-        # Initialising from decision 0 (not -inf) keeps ties/non-finite
-        # comparisons on the first decision, matching the Pallas kernel.
-        for d in range(num_decisions):
-            lo = idx_lo[:, d]
-            w = w_hi[:, d][:, None]
-            c_act_d = v_act_next[lo] * (1 - w) + v_act_next[lo + 1] * w  # [G, S]
-            imm = a[:, d][:, None] * spot[None, :] + b[:, d][:, None]
-            val_reg = imm + pred[:, d, :]
-            val_act = imm + c_act_d
-            if d == 0:
-                best_reg, best_act = val_reg, val_act
-            else:
-                better = val_reg > best_reg
-                best_reg = jnp.where(better, val_reg, best_reg)
-                best_act = jnp.where(better, val_act, best_act)
+        else:
+            best_act = decision_update_xla(v_act_next, dm_std, *args)
         return best_act, {"mean": mean, "std": std, "coeffs": coeffs}
 
-    return fused_body, plain_body
-
-
-def _fused_bootstrap(monomials, spot_last, factors_last, v_end, axis_name, dtype):
-    """Moments of the LAST step's design matrix against the terminal values,
-    standardised with exact two-pass stats (every later step's moments come
-    out of the kernel in u-coordinates)."""
-    dm_last = design_matrix(monomials, spot_last, factors_last)
-    mean0, std0 = column_stats(dm_last, axis_name)
-    u0 = (dm_last - mean0) / std0
-    hi = jax.lax.Precision.HIGHEST
-    xtx0 = jnp.dot(u0.T, u0, preferred_element_type=dtype, precision=hi)
-    xty0 = jnp.dot(u0.T, v_end.T, preferred_element_type=dtype, precision=hi)
-    return xtx0, xty0, mean0, std0
+    return body
 
 
 def lsmc_backward(
@@ -377,37 +280,11 @@ def lsmc_backward(
     ratchet_is_step: bool,
     axis_name: tp.Optional[str],
     use_pallas: bool = False,
-    snap_interp: tp.Optional[bool] = None,
-    pred_passes: int = 2,
     uniform_grids: bool = True,
 ):
     """Backward induction over materialised path panels.  Returns (v0 [G, S]
     values at the first period, regression payload dict of stacked per-step
-    arrays [N, ...]).
-
-    ``snap_interp`` rounds interpolation weights to the 1/256 grid (the
-    quadrature the Pallas kernel requires for exact 2-pass bf16 interpolation);
-    defaults to ``use_pallas`` so the XLA path can be run on the identical
-    quadrature for equivalence testing.  ``pred_passes`` selects the number of
-    split-precision MXU passes for the regressed-gap matmul in the Pallas
-    kernels (2 = centred-gap default, 3 = validated fallback, 1 = exact f32
-    VPU accumulation; see ops/decision_kernel._kernel)."""
-    if snap_interp is None:
-        snap_interp = use_pallas
-    elif use_pallas and not snap_interp:
-        # The kernel force-snaps the hat matrix to the 1/256 grid regardless
-        # (its 2-pass interpolation REQUIRES bf16-exact weights), so
-        # unsnapped coefficient interpolation would silently diverge the
-        # regressed and actual continuation quadratures (ADVICE r03 item 4).
-        import warnings
-
-        warnings.warn(
-            "use_pallas=True with snap_interp=False: the Pallas kernel snaps "
-            "interpolation weights internally, so the coefficient "
-            "interpolation will use a different quadrature than the value "
-            "interpolation. Pass snap_interp=True (or leave it None).",
-            stacklevel=2,
-        )
+    arrays [N, ...])."""
     grids = arrays["grids"]
     n = grids.shape[0] - 1
 
@@ -417,62 +294,19 @@ def lsmc_backward(
     )
     per_step = _backward_per_step(arrays)
     per_step.update(_backward_prep_all(
-        per_step, num_extra_decisions, ratchet_is_step, snap_interp,
-        with_w_mat=use_pallas, uniform_grids=uniform_grids,
+        per_step, num_extra_decisions, ratchet_is_step, uniform_grids,
     ))
     per_step["spot"] = spot_reg[:n]
     per_step["factors"] = factors_reg[:n]
-
-    # The fully fused path additionally accumulates the next step's raw
-    # regression moments inside the decision kernel (one pass over the value
-    # panel instead of two); it needs at least one simulated factor panel to
-    # build the design matrix on-tile.
-    use_fused_moments = use_pallas and factors_reg.shape[1] > 0
-    fullstep = resolve_fullstep(use_fused_moments, axis_name)
-
-    fused_body, plain_body = _backward_bodies(
-        monomials, num_extra_decisions, ratchet_is_step, axis_name, use_pallas,
-        snap_interp, pred_passes, fullstep=fullstep,
-    )
-
-    if use_fused_moments:
-        xtx0, xty0, mean0, std0 = _fused_bootstrap(
-            monomials, spot_reg[n - 1], factors_reg[n - 1], v_end, axis_name,
-            grids.dtype,
-        )
-        # Previous-step slices (clamped at t=0), consumed by the in-kernel
-        # moment accumulation of the NEXT iteration's design matrix: indexed
-        # dynamically out of the closed-over panels (shifted-copy panels as
-        # scan xs measured ~170 ms slower at the bench config — the extra
-        # panel materialisation defeats XLA's buffer reuse).
-        per_step["idx"] = jnp.arange(n)
-
-        def fused_body_materialised(carry, x):
-            x = dict(x)
-            prev = jnp.maximum(x.pop("idx") - 1, 0)
-            x["spot_prev"] = jax.lax.dynamic_index_in_dim(
-                spot_reg, prev, keepdims=False
-            )
-            x["factors_prev"] = jax.lax.dynamic_index_in_dim(
-                factors_reg, prev, keepdims=False
-            )
-            return fused_body(carry, x)
-
-        (v0, _, _, _, _), regression = jax.lax.scan(
-            fused_body_materialised, (v_end, xtx0, xty0, mean0, std0), per_step,
-            reverse=True,
-        )
-        return v0, regression
-
-    v0, regression = jax.lax.scan(plain_body, v_end, per_step, reverse=True)
-    return v0, regression
+    body = _backward_body(monomials, num_extra_decisions, axis_name, use_pallas)
+    return jax.lax.scan(body, v_end, per_step, reverse=True)
 
 
 # ------------------------------------------------------------- streamed sims
 #
-# The 1M-path headline config cannot materialise [N+1, S] spot plus
-# [N+1, F, S] factor panels for two sim sets (~11.7 GB f32 at 1M x 366 — over
-# a 16 GB chip; VERDICT r02 item 1).  The per-(step, path) counter RNG
+# At 1M paths the [N+1, S] spot plus [N+1, F, S] factor panels of two sim
+# sets take ~11.7 GB f32 (1M x 366); past ``parallel.mesh``'s threshold the
+# engine does not materialise them.  The per-(step, path) counter RNG
 # (models/spot_sim.step_normals) lets the scans regenerate any step's draws in
 # place, so the streamed engine holds no path panels at all:
 #
@@ -506,13 +340,7 @@ class StreamedSims(tp.NamedTuple):
 
 
 def _stream_step_arrays(stream: StreamedSims, n: int) -> tp.Dict[str, jnp.ndarray]:
-    """Per-step simulation parameters for steps 0..n-1 plus the previous
-    step's spot parameters (row 0 duplicated: the t=0 'previous' step clamps
-    to t=0 itself, matching the materialised scan)."""
-
-    def prev(a):
-        return jnp.concatenate([a[0:1], a[:-1]], axis=0)
-
+    """Per-step simulation parameters for steps 0..n-1."""
     return {
         "t_idx": jnp.arange(n),
         "sim_decay": stream.decay[:n],
@@ -520,9 +348,6 @@ def _stream_step_arrays(stream: StreamedSims, n: int) -> tp.Dict[str, jnp.ndarra
         "sim_fwd": stream.fwd[:n],
         "sim_hv": stream.half_var[:n],
         "sim_vols": stream.vols[:n],
-        "sim_fwd_prev": prev(stream.fwd[:n]),
-        "sim_hv_prev": prev(stream.half_var[:n]),
-        "sim_vols_prev": prev(stream.vols[:n]),
     }
 
 
@@ -537,7 +362,7 @@ def _stream_scan_draws(stream: StreamedSims, t_idx, antithetic: bool):
     """Bulk draws for a contiguous block of steps, packaged for in-scan
     consumption: returns ``(xs_extra, get_z)`` where ``xs_extra`` joins the
     scan xs and ``get_z(carry_free_xs_slice)`` yields the step's [F, S]
-    draws.  f32 uses the block-half layout (no word-interleave relayout of
+    draws.  f32 uses the block-half layout (no word-interleave pass over
     the whole panel — spot_sim.draw_normal_halves); f64 words never straddle
     blocks, so the assembled [T, F, S] panel is free of relayout anyway."""
     f = stream.decay.shape[1]
@@ -605,12 +430,9 @@ def _stream_warmup(stream: StreamedSims, n: int, seg_len: int, antithetic: bool)
     return checkpoints, ragged_entry, x_last
 
 
-def _regen_segment(stream: StreamedSims, entry_state, seg, antithetic: bool,
-                   is_first_segment, with_prev: bool):
+def _regen_segment(stream: StreamedSims, entry_state, seg, antithetic: bool):
     """Regenerate one segment's spot [L, S] and factors [L, F, S] forward from
-    its checkpoint (bit-identical to the simulator's own recursion), plus the
-    previous-step slices the fused kernel consumes.  ``is_first_segment`` is a
-    traced bool selecting the t=0 clamp (prev = the step itself)."""
+    its checkpoint (bit-identical to the simulator's own recursion)."""
 
     z_xs, get_z = _stream_scan_draws(stream, seg["t_idx"], antithetic)
 
@@ -624,35 +446,18 @@ def _regen_segment(stream: StreamedSims, entry_state, seg, antithetic: bool,
         return x_new, (spot, x_new)
 
     _, (spot_seg, fac_seg) = jax.lax.scan(body, entry_state, (z_xs, seg))
-    if not with_prev:
-        return spot_seg, fac_seg, None, None
-    entry_fac = entry_state  # already [F, S]
-    entry_spot = spot_sim_mod.spot_from_state(
-        entry_state, seg["sim_fwd_prev"][0], seg["sim_hv_prev"][0],
-        seg["sim_vols_prev"][0],
-    )
-    first_prev_fac = jnp.where(is_first_segment, fac_seg[0], entry_fac)
-    first_prev_spot = jnp.where(is_first_segment, spot_seg[0], entry_spot)
-    spot_prev = jnp.concatenate([first_prev_spot[None], spot_seg[:-1]], axis=0)
-    fac_prev = jnp.concatenate([first_prev_fac[None], fac_seg[:-1]], axis=0)
-    return spot_seg, fac_seg, spot_prev, fac_prev
+    return spot_seg, fac_seg
 
 
-def _process_backward_segment(stream, carry, entry_state, seg, is_first_segment,
-                              body, use_fused_moments: bool, antithetic: bool):
-    """Regenerate one segment's paths and run the backward bodies over it
+def _process_backward_segment(stream, carry, entry_state, seg, body,
+                              antithetic: bool):
+    """Regenerate one segment's paths and run the backward body over it
     (shared by the fully-jitted scan-over-segments and the host-chunked
     progress/cancellation driver)."""
-    spot_seg, fac_seg, spot_prev, fac_prev = _regen_segment(
-        stream, entry_state, seg, antithetic, is_first_segment,
-        with_prev=use_fused_moments,
-    )
+    spot_seg, fac_seg = _regen_segment(stream, entry_state, seg, antithetic)
     seg = dict(seg)
     seg["spot"] = spot_seg
     seg["factors"] = fac_seg
-    if use_fused_moments:
-        seg["spot_prev"] = spot_prev
-        seg["factors_prev"] = fac_prev
     return jax.lax.scan(body, carry, seg, reverse=True)
 
 
@@ -665,8 +470,6 @@ def lsmc_backward_streamed(
     ratchet_is_step: bool,
     axis_name: tp.Optional[str],
     use_pallas: bool = False,
-    snap_interp: tp.Optional[bool] = None,
-    pred_passes: int = 2,
     seg_len: int = 16,
     antithetic: bool = False,
     remat: bool = False,
@@ -678,21 +481,6 @@ def lsmc_backward_streamed(
     through the scan stores only segment-boundary carries ([N/K, G, S])
     instead of every step's residuals — the memory bound that makes the
     adjoint-delta sweep feasible at bench scale."""
-    if snap_interp is None:
-        snap_interp = use_pallas
-    elif use_pallas and not snap_interp:
-        # Same hazard as lsmc_backward: the kernel force-snaps the hat
-        # matrix, so unsnapped coefficient interpolation silently diverges
-        # the two continuation quadratures (ADVICE r03 item 4).
-        import warnings
-
-        warnings.warn(
-            "use_pallas=True with snap_interp=False: the Pallas kernel snaps "
-            "interpolation weights internally, so the coefficient "
-            "interpolation will use a different quadrature than the value "
-            "interpolation. Pass snap_interp=True (or leave it None).",
-            stacklevel=2,
-        )
     grids = arrays["grids"]
     n = grids.shape[0] - 1
     seg_len = max(1, min(seg_len, n))
@@ -701,25 +489,17 @@ def lsmc_backward_streamed(
     s = stream.path_ids.shape[0]
     dtype = grids.dtype
 
-    use_fused_moments = use_pallas and stream.decay.shape[1] > 0
-    fused_body, plain_body = _backward_bodies(
-        monomials, num_extra_decisions, ratchet_is_step, axis_name, use_pallas,
-        snap_interp, pred_passes,
-    )
+    body = _backward_body(monomials, num_extra_decisions, axis_name, use_pallas)
 
     checkpoints, ragged_entry, x_last = _stream_warmup(
         stream, n, seg_len, antithetic
     )
-    spot_last = spot_sim_mod.spot_from_state(
-        x_last, stream.fwd[n - 1], stream.half_var[n - 1], stream.vols[n - 1]
-    )
     _, spot_end = _stream_terminal_state(stream, x_last, n, antithetic)
-    v_end = _terminal_values(terminal_fn, spot_end, grids[n], num_grid, s, dtype)
+    carry = _terminal_values(terminal_fn, spot_end, grids[n], num_grid, s, dtype)
 
     per_step = _backward_per_step(arrays)
     per_step.update(_backward_prep_all(
-        per_step, num_extra_decisions, ratchet_is_step, snap_interp,
-        with_w_mat=use_pallas,
+        per_step, num_extra_decisions, ratchet_is_step,
     ))
     per_step.update(_stream_step_arrays(stream, n))
     full_steps = jax.tree.map(
@@ -727,20 +507,9 @@ def lsmc_backward_streamed(
     )
     ragged_steps = jax.tree.map(lambda a: a[m * seg_len :], per_step)
 
-    if use_fused_moments:
-        xtx0, xty0, mean0, std0 = _fused_bootstrap(
-            monomials, spot_last, x_last, v_end, axis_name, dtype
-        )
-        carry = (v_end, xtx0, xty0, mean0, std0)
-        body = fused_body
-    else:
-        carry = v_end
-        body = plain_body
-
-    def process_segment(carry, entry_state, seg, is_first_segment):
+    def process_segment(carry, entry_state, seg):
         return _process_backward_segment(
-            stream, carry, entry_state, seg, is_first_segment, body,
-            use_fused_moments, antithetic,
+            stream, carry, entry_state, seg, body, antithetic,
         )
 
     if remat:
@@ -748,18 +517,15 @@ def lsmc_backward_streamed(
 
     reg_ragged = None
     if r > 0:
-        carry, reg_ragged = process_segment(
-            carry, ragged_entry, ragged_steps, jnp.asarray(m == 0)
-        )
+        carry, reg_ragged = process_segment(carry, ragged_entry, ragged_steps)
 
     if m > 0:
         def outer_body(carry, seg_xs):
-            seg_idx, entry_state, seg = seg_xs
-            return process_segment(carry, entry_state, seg, seg_idx == 0)
+            entry_state, seg = seg_xs
+            return process_segment(carry, entry_state, seg)
 
         carry, reg_full = jax.lax.scan(
-            outer_body, carry, (jnp.arange(m), checkpoints, full_steps),
-            reverse=True,
+            outer_body, carry, (checkpoints, full_steps), reverse=True,
         )
         # [m, K, ...] -> [m*K, ...]
         reg_full = jax.tree.map(
@@ -776,9 +542,7 @@ def lsmc_backward_streamed(
         regression = jax.tree.map(
             lambda a, b: jnp.concatenate([a, b], axis=0), reg_full, reg_ragged
         )
-
-    v0 = carry[0] if use_fused_moments else carry
-    return v0, regression
+    return carry, regression
 
 
 def _trigger_outputs(x, xbar, expected_inventory, ratchet_is_step: bool,
@@ -787,7 +551,7 @@ def _trigger_outputs(x, xbar, expected_inventory, ratchet_is_step: bool,
     (LsmcStorageValuation.cs:523-592).  ``x`` carries the step scalars,
     ``xbar`` the cross-sim mean standardised design row."""
     num_tv = NUM_TRIGGER_PRICE_VOLUMES
-    cbar = xbar @ x["coeffs"]  # [G_next]
+    cbar = jnp.dot(xbar, x["coeffs"], precision=jax.lax.Precision.HIGHEST)  # [G_next]
     e_loss = x["loss_pcnt"] * expected_inventory
     e_min_rate, e_max_rate = gridmod.ratchet_rates(
         x["ratchet_inv"], x["ratchet_min"], x["ratchet_max"], ratchet_is_step,
@@ -869,12 +633,11 @@ def _trigger_outputs(x, xbar, expected_inventory, ratchet_is_step: bool,
 def _forward_per_step(
     arrays: tp.Dict[str, jnp.ndarray],
     regression: tp.Dict[str, jnp.ndarray],
-    fused: bool,
 ) -> tp.Dict[str, jnp.ndarray]:
     """Per-step facility/regression arrays feeding the forward scan."""
     grids = arrays["grids"]
     n = grids.shape[0] - 1
-    per_step = {
+    return {
         "grid_next": grids[1:],
         "next_min": arrays["lower"][1:],
         "next_max": arrays["upper"][1:],
@@ -894,82 +657,22 @@ def _forward_per_step(
         "std": regression["std"],
         "coeffs": regression["coeffs"],
     }
-    if fused:
-        # Pack per-step scalars for the fused kernel's SMEM parameter vector.
-        g_next = grids.shape[1]
-        lo_all = per_step["grid_next"][:, 0]
-        hi_all = per_step["grid_next"][:, g_next - 1]
-        span = hi_all - lo_all
-        delta_pos = span / (g_next - 1) > 0
-        inv_delta = jnp.where(
-            delta_pos, (g_next - 1) / jnp.where(span > 0, span, 1.0), 0.0
-        )
-        per_step["params"] = jnp.stack(
-            [
-                per_step["df_settle"], per_step["df_flow"],
-                per_step["inj_cost"], per_step["wdr_cost"],
-                per_step["inj_pcnt"], per_step["wdr_pcnt"],
-                per_step["loss_pcnt"], per_step["inv_cost_rate"],
-                per_step["next_min"], per_step["next_max"],
-                lo_all, hi_all, inv_delta,
-            ],
-            axis=1,
-        ).astype(jnp.float32)
-    return per_step
 
 
-def _forward_bodies(
+def _forward_body(
     monomials: tp.Tuple[Monomial, ...],
     num_extra_decisions: int,
     discount_deltas: bool,
     ratchet_is_step: bool,
     axis_name: tp.Optional[str],
     return_sim_data: bool,
-    s_local: int,
-    sim_tile: int,
     dtype,
-    fwd_pred_passes: int = 2,
     uniform_grids: bool = True,
 ):
-    """Shared forward-step closures (fused Pallas / plain XLA) for the
-    materialised and streamed scans.  Bodies take ``(carry, x)`` with carry
-    (inventory [S], pv [S]) and ``x`` holding per-step arrays plus ``spot``
-    [S] and ``factors`` [F, S]."""
+    """The forward-step closure shared by the materialised and streamed
+    scans.  It takes ``(carry, x)`` with carry (inventory [S], pv [S]) and
+    ``x`` holding per-step arrays plus ``spot`` [S] and ``factors`` [F, S]."""
     num_decisions = 2 * num_extra_decisions + 3
-
-    def forward_step_fused(carry, x):
-        inventory, pv = carry  # [S], [S]
-        new_inv, new_pv, _opt_dec, _opt_cons, sums, xbar_sum = (
-            forward_kernel.forward_step_pallas(
-                x["params"], x["mean"], x["std"],
-                x["ratchet_inv"], x["ratchet_min"], x["ratchet_max"],
-                x["spot"], x["factors"], inventory, pv, x["coeffs"],
-                monomials, num_extra_decisions, ratchet_is_step, sim_tile,
-                pred_passes=fwd_pred_passes,
-            )
-        )
-        count = _psum(jnp.asarray(s_local, dtype), axis_name)
-        sums_g = _psum(sums, axis_name)
-        xbar = _psum(xbar_sum, axis_name) / count
-        expected_inventory = sums_g[forward_kernel._A_INV] / count
-        profile = (
-            expected_inventory,
-            sums_g[forward_kernel._A_DEC] / count,
-            sums_g[forward_kernel._A_CONS] / count,
-            sums_g[forward_kernel._A_LOSS] / count,
-            sums_g[forward_kernel._A_IMM] / count,
-        )
-        disc = x["df_settle"] if discount_deltas else jnp.ones_like(x["df_settle"])
-        delta = sums_g[forward_kernel._A_DELTA] / count / x["fwd"] * disc
-        outputs = {
-            "delta": delta,
-            "profile": profile,
-            **_trigger_outputs(
-                x, xbar, expected_inventory, ratchet_is_step,
-                num_extra_decisions, dtype, uniform_grids,
-            ),
-        }
-        return (new_inv, new_pv), outputs
 
     def forward_step(carry, x):
         inventory, pv = carry  # [S], [S]
@@ -999,8 +702,7 @@ def _forward_bodies(
 
         total = imm + cont
         best = jnp.argmax(total, axis=1)  # [S]
-        # One-hot contraction instead of take_along_axis: D is tiny and
-        # minor-axis gathers are slow on TPU.
+        # One-hot contraction over the small decision axis.
         onehot = (best[:, None] == jnp.arange(num_decisions)).astype(imm.dtype)
         take = lambda arr: jnp.sum(arr * onehot, axis=1)
         opt_decision = take(decisions)
@@ -1049,7 +751,7 @@ def _forward_bodies(
             }
         return (new_inventory, new_pv), outputs
 
-    return forward_step_fused, forward_step
+    return forward_step
 
 
 def _forward_finalise(
@@ -1129,13 +831,6 @@ def _forward_finalise(
     }
 
 
-def _resolve_forward_fused(use_pallas, return_sim_data, dtype, sim_tile):
-    return bool(
-        use_pallas and not return_sim_data and dtype == jnp.float32
-        and sim_tile > 0
-    )
-
-
 def lsmc_forward(
     arrays: tp.Dict[str, jnp.ndarray],
     spot_val: jnp.ndarray,  # [N+1, S]
@@ -1149,8 +844,6 @@ def lsmc_forward(
     ratchet_is_step: bool,
     axis_name: tp.Optional[str],
     return_sim_data: bool,
-    use_pallas: bool = False,
-    fwd_pred_passes: int = 2,
     uniform_grids: bool = True,
 ):
     """Forward simulation over materialised path panels."""
@@ -1158,24 +851,19 @@ def lsmc_forward(
     n = grids.shape[0] - 1
     dtype = grids.dtype
     s_local = spot_val.shape[1]
-    sim_tile = forward_kernel.pick_fwd_sim_tile(s_local)
-    fused = _resolve_forward_fused(use_pallas, return_sim_data, dtype, sim_tile)
 
-    per_step = _forward_per_step(arrays, regression, fused)
+    per_step = _forward_per_step(arrays, regression)
     per_step["spot"] = spot_val[:n]
     per_step["factors"] = factors_val[:n]
 
-    fused_body, plain_body = _forward_bodies(
+    body = _forward_body(
         monomials, num_extra_decisions, discount_deltas, ratchet_is_step,
-        axis_name, return_sim_data, s_local, sim_tile, dtype,
-        fwd_pred_passes=fwd_pred_passes, uniform_grids=uniform_grids,
+        axis_name, return_sim_data, dtype, uniform_grids=uniform_grids,
     )
 
     inv0 = jnp.full((s_local,), jnp.asarray(starting_inventory, dtype))
     pv0 = jnp.zeros((s_local,), dtype)
-    (final_inventory, pv_by_sim), outputs = jax.lax.scan(
-        fused_body if fused else plain_body, (inv0, pv0), per_step
-    )
+    (final_inventory, pv_by_sim), outputs = jax.lax.scan(body, (inv0, pv0), per_step)
     return _forward_finalise(
         outputs, final_inventory, pv_by_sim, spot_val[n], terminal_fn,
         axis_name, return_sim_data, s_local, dtype,
@@ -1185,7 +873,7 @@ def lsmc_forward(
 def _stream_forward_segment_scan(stream, carry, seg, body, antithetic):
     """Scan one streamed-forward segment: bulk-draw the whole segment's
     normals in ONE hash call (per-step draws inside the scan SEQUENTIALISE
-    the threefry hashing, measured ~70 ms per 262k-path sweep), then step
+    the threefry hashing), then step
     the OU state alongside the inventory/pv carry.  Values are bit-identical
     to per-step drawing.  Shared by the fully-jitted forward scan and the
     host-chunked segment driver so the two streamed forward bodies cannot
@@ -1220,11 +908,9 @@ def lsmc_forward_streamed(
     terminal_fn,
     ratchet_is_step: bool,
     axis_name: tp.Optional[str],
-    use_pallas: bool = False,
     antithetic: bool = False,
     remat: bool = False,
     seg_len: int = 16,
-    fwd_pred_passes: int = 2,
 ):
     """Forward simulation with in-scan path regeneration: the scan carries the
     OU factor state and prices each step on the fly, so no [N, S] valuation
@@ -1238,18 +924,14 @@ def lsmc_forward_streamed(
     dtype = grids.dtype
     s_local = stream.path_ids.shape[0]
     f = stream.decay.shape[1]
-    sim_tile = forward_kernel.pick_fwd_sim_tile(s_local)
-    fused = _resolve_forward_fused(use_pallas, False, dtype, sim_tile)
 
-    per_step = _forward_per_step(arrays, regression, fused)
+    per_step = _forward_per_step(arrays, regression)
     per_step.update(_stream_step_arrays(stream, n))
 
-    fused_body, plain_body = _forward_bodies(
+    body = _forward_body(
         monomials, num_extra_decisions, discount_deltas, ratchet_is_step,
-        axis_name, False, s_local, sim_tile, dtype,
-        fwd_pred_passes=fwd_pred_passes,
+        axis_name, False, dtype,
     )
-    body = fused_body if fused else plain_body
 
     def seg_scan_plain(carry, seg_xs):
         return _stream_forward_segment_scan(stream, carry, seg_xs, body, antithetic)
@@ -1305,8 +987,6 @@ def lsmc_forward_streamed(
         "return_sim_data",
         "use_pallas",
         "return_regression",
-        "snap_interp",
-        "pred_passes",
         "uniform_grids",
     ),
 )
@@ -1326,26 +1006,18 @@ def lsmc_core(
     return_sim_data: bool = False,
     use_pallas: bool = False,
     return_regression: bool = False,
-    snap_interp: tp.Optional[bool] = None,
-    pred_passes: int = 2,
     uniform_grids: bool = True,
 ) -> tp.Dict[str, jnp.ndarray]:
-    use_pallas = use_pallas and not has_generic(monomials)  # generic basis -> XLA path
-    if not uniform_grids:
-        # The fused Pallas kernels compute grid positions arithmetically
-        # (uniform spacing); non-uniform user grids take the general-interp
-        # XLA path.
-        use_pallas = False
+    use_pallas = _kernel_eligible(use_pallas, monomials, uniform_grids)
     v0, regression = lsmc_backward(
         arrays, spot_reg, factors_reg, monomials, num_extra_decisions, terminal_fn,
-        ratchet_is_step, axis_name, use_pallas=use_pallas, snap_interp=snap_interp,
-        pred_passes=pred_passes, uniform_grids=uniform_grids,
+        ratchet_is_step, axis_name, use_pallas=use_pallas,
+        uniform_grids=uniform_grids,
     )
     result = lsmc_forward(
         arrays, spot_val, factors_val, regression, starting_inventory, monomials,
         num_extra_decisions, discount_deltas, terminal_fn, ratchet_is_step, axis_name,
-        return_sim_data, use_pallas=use_pallas, uniform_grids=uniform_grids,
-        fwd_pred_passes=pred_passes,
+        return_sim_data, uniform_grids=uniform_grids,
     )
     # Backward (upper-ish) estimate: mean over sims of the first-period values at
     # the known starting inventory (grid[0] is degenerate) — LsmcStorageValuation.cs:623.
@@ -1372,8 +1044,6 @@ def lsmc_core(
         "axis_name",
         "use_pallas",
         "return_regression",
-        "snap_interp",
-        "pred_passes",
         "seg_len",
         "antithetic",
         "same_sims",
@@ -1394,19 +1064,17 @@ def lsmc_core_streamed(
     axis_name: tp.Optional[str] = None,
     use_pallas: bool = False,
     return_regression: bool = False,
-    snap_interp: tp.Optional[bool] = None,
-    pred_passes: int = 2,
     seg_len: int = 16,
     antithetic: bool = False,
     same_sims: bool = False,
 ) -> tp.Dict[str, jnp.ndarray]:
     """Full LSMC valuation with in-scan path regeneration: the only [·, S]
-    array alive across steps is the value panel [G, S] — no spot/factor panels
-    — so the 1M-path headline config fits a single chip (VERDICT r02 item 1).
+    array alive across steps is the value panel [G, S] — no spot/factor
+    panels.
     Dual-sim estimator as in ``lsmc_core``: ``reg_key`` drives the backward
     regression sims, ``val_key`` the independent forward valuation sims
     (``same_sims`` reuses the regression stream)."""
-    use_pallas = use_pallas and not has_generic(monomials)  # generic basis -> XLA path
+    use_pallas = _kernel_eligible(use_pallas, monomials)
     reg_stream = StreamedSims(
         decay=sim_inputs["decay"], chol=sim_inputs["chol"],
         vols=sim_inputs["vols"], half_var=sim_inputs["half_var"],
@@ -1415,15 +1083,13 @@ def lsmc_core_streamed(
     val_stream = reg_stream._replace(key=reg_key if same_sims else val_key)
     v0, regression = lsmc_backward_streamed(
         arrays, reg_stream, monomials, num_extra_decisions, terminal_fn,
-        ratchet_is_step, axis_name, use_pallas=use_pallas,
-        snap_interp=snap_interp, pred_passes=pred_passes, seg_len=seg_len,
+        ratchet_is_step, axis_name, use_pallas=use_pallas, seg_len=seg_len,
         antithetic=antithetic,
     )
     result = lsmc_forward_streamed(
         arrays, val_stream, regression, starting_inventory, monomials,
         num_extra_decisions, discount_deltas, terminal_fn, ratchet_is_step,
-        axis_name, use_pallas=use_pallas, antithetic=antithetic,
-        fwd_pred_passes=pred_passes,
+        axis_name, antithetic=antithetic,
     )
     result["backward_npv"] = _global_mean_over_sims(v0[0], axis_name)
     if return_regression:
@@ -1437,7 +1103,7 @@ def lsmc_core_streamed(
     jax.jit,
     static_argnames=(
         "monomials", "num_extra_decisions", "discount_deltas", "terminal_fn",
-        "ratchet_is_step", "axis_name", "use_pallas", "uniform_grids", "pred_passes",
+        "ratchet_is_step", "axis_name", "use_pallas", "uniform_grids",
     ),
 )
 def lsmc_npv_and_ad_deltas(
@@ -1455,7 +1121,6 @@ def lsmc_npv_and_ad_deltas(
     axis_name: tp.Optional[str] = None,
     use_pallas: bool = False,
     uniform_grids: bool = True,
-    pred_passes: int = 2,
 ):
     """NPV and deltas by automatic differentiation through the valuation.
 
@@ -1475,17 +1140,15 @@ def lsmc_npv_and_ad_deltas(
     Structure mirrors the streamed variant: the BACKWARD pass runs outside
     ``value_and_grad`` (its regression payload only reaches the NPV through
     the gradient-dead argmax, so it is ``stop_gradient``-ed) — which both
-    shrinks the tape and lets it use the fused Pallas kernel on TPU.
+    shrinks the tape and lets it use the Pallas decision kernel.
     """
-    use_pallas = (
-        use_pallas and uniform_grids and not has_generic(monomials)
-    )  # generic basis / non-uniform grids -> XLA path
+    use_pallas = _kernel_eligible(use_pallas, monomials, uniform_grids)
     fwd = arrays["fwd"]
     spot_reg = fwd[:, None] * stoch_reg
     v0, regression = lsmc_backward(
         arrays, spot_reg, factors_reg, monomials, num_extra_decisions,
         terminal_fn, ratchet_is_step, axis_name, use_pallas=use_pallas,
-        uniform_grids=uniform_grids, pred_passes=pred_passes,
+        uniform_grids=uniform_grids,
     )
     regression = jax.tree.map(jax.lax.stop_gradient, regression)
     # The differentiated forward runs COLLECTIVE-FREE per shard and the
@@ -1583,7 +1246,7 @@ def lsmc_ad_deltas_path_chunked(
     device-sized chunk fed from numpy, and average.  Memory is bounded by one
     chunk's panels plus its AD tape; results are identical (f-dtype mean
     associativity aside) to the materialised sweep.  Completes the adjoint
-    matrix for host-streamed panels (VERDICT r04 item 2)."""
+    matrix for host-streamed panels."""
     n_total = spot_val.shape[1]
     dtype = arrays["grids"].dtype
     inv0 = jnp.asarray(starting_inventory, dtype)
@@ -1614,7 +1277,7 @@ def lsmc_ad_deltas_path_chunked(
     static_argnames=(
         "monomials", "num_extra_decisions", "discount_deltas", "terminal_fn",
         "ratchet_is_step", "axis_name", "seg_len", "antithetic", "same_sims",
-        "use_pallas", "pred_passes",
+        "use_pallas",
     ),
 )
 def lsmc_npv_and_ad_deltas_streamed(
@@ -1634,10 +1297,9 @@ def lsmc_npv_and_ad_deltas_streamed(
     antithetic: bool = False,
     same_sims: bool = False,
     use_pallas: bool = False,
-    pred_passes: int = 2,
 ):
     """Adjoint deltas with streamed sims and segment rematerialisation
-    (VERDICT r02 item 3: the sharded, memory-bounded adjoint sweep).
+    (the sharded, memory-bounded adjoint sweep).
 
     Structure: the BACKWARD pass runs un-differentiated with globally psum'd
     moments (the policy is exactly gradient-dead: the forward NPV depends on
@@ -1654,10 +1316,9 @@ def lsmc_npv_and_ad_deltas_streamed(
     spot/fwd exactly — the reference's pathwise assumption,
     LsmcStorageValuation.cs:514-517, holds by construction).  Segment
     ``jax.checkpoint`` bounds the AD tape to segment-boundary carries.  The
-    backward pass may use the Pallas kernels (no gradient flows through it);
-    the differentiated forward sweep always runs the XLA body (Pallas
-    defines no VJP)."""
-    use_pallas = use_pallas and not has_generic(monomials)  # generic basis -> XLA path
+    backward pass may use the Pallas decision kernel (no gradient flows
+    through it)."""
+    use_pallas = _kernel_eligible(use_pallas, monomials)
     inv0 = jnp.asarray(starting_inventory, arrays["grids"].dtype)
     fwd = sim_inputs["fwd"]
 
@@ -1668,14 +1329,12 @@ def lsmc_npv_and_ad_deltas_streamed(
     )
     val_stream = reg_stream._replace(key=reg_key if same_sims else val_key)
     # The backward pass sits OUTSIDE value_and_grad (its payload is
-    # stop_gradient-ed below), so it may run the fused Pallas kernel: the
-    # adjoint then prices with the SAME policy quadrature as the pricing run,
-    # and the sweep no longer pays the 5.5x XLA-backward penalty (the
-    # differentiated FORWARD below must stay XLA — Pallas defines no VJP).
+    # stop_gradient-ed below), so it may run the Pallas decision kernel and
+    # prices with the same body as the pricing run.
     _v0, regression = lsmc_backward_streamed(
         arrays, reg_stream, monomials, num_extra_decisions, terminal_fn,
         ratchet_is_step, axis_name, use_pallas=use_pallas, seg_len=seg_len,
-        antithetic=antithetic, pred_passes=pred_passes,
+        antithetic=antithetic,
     )
     regression = jax.tree.map(jax.lax.stop_gradient, regression)
 
@@ -1685,8 +1344,7 @@ def lsmc_npv_and_ad_deltas_streamed(
         result = lsmc_forward_streamed(
             arr, val_stream._replace(fwd=fwd_v), regression, inv0, monomials,
             num_extra_decisions, False, terminal_fn, ratchet_is_step,
-            axis_name=None, use_pallas=False, antithetic=antithetic,
-            remat=True, seg_len=seg_len,
+            axis_name=None, antithetic=antithetic, remat=True, seg_len=seg_len,
         )
         return result["npv"]  # this shard's local mean PV
 
@@ -1754,56 +1412,38 @@ def _stream_warmup_jit(stream: StreamedSims, seg_len: int, antithetic: bool):
     return _stream_warmup(stream, n, seg_len, antithetic)
 
 
-@partial(
-    jax.jit,
-    static_argnames=("monomials", "terminal_fn", "axis_name", "fused", "antithetic"),
-)
+@partial(jax.jit, static_argnames=("terminal_fn", "antithetic"))
 def _backward_init_streamed_jit(
-    arrays, stream: StreamedSims, x_last,
-    *, monomials, terminal_fn, axis_name, fused, antithetic,
+    arrays, stream: StreamedSims, x_last, *, terminal_fn, antithetic,
 ):
     grids = arrays["grids"]
     n = grids.shape[0] - 1
-    dtype = grids.dtype
     s = stream.path_ids.shape[0]
     _, spot_end = _stream_terminal_state(stream, x_last, n, antithetic)
-    v_end = _terminal_values(terminal_fn, spot_end, grids[n], grids.shape[1], s, dtype)
-    if not fused:
-        return v_end
-    spot_last = spot_sim_mod.spot_from_state(
-        x_last, stream.fwd[n - 1], stream.half_var[n - 1], stream.vols[n - 1]
+    return _terminal_values(
+        terminal_fn, spot_end, grids[n], grids.shape[1], s, grids.dtype
     )
-    xtx0, xty0, mean0, std0 = _fused_bootstrap(
-        monomials, spot_last, x_last, v_end, axis_name, dtype
-    )
-    return (v_end, xtx0, xty0, mean0, std0)
 
 
 _BWD_SEG_STATICS = (
-    "monomials", "num_extra_decisions", "ratchet_is_step", "axis_name",
-    "use_pallas", "snap_interp", "pred_passes", "antithetic", "fused",
+    "monomials", "num_extra_decisions", "axis_name", "use_pallas", "antithetic",
 )
 
 
 @partial(jax.jit, static_argnames=_BWD_SEG_STATICS)
 def _backward_segment_chunk_jit(
-    stream: StreamedSims, carry, entry_state, seg, is_first,
-    *, monomials, num_extra_decisions, ratchet_is_step, axis_name, use_pallas,
-    snap_interp, pred_passes, antithetic, fused,
+    stream: StreamedSims, carry, entry_state, seg,
+    *, monomials, num_extra_decisions, axis_name, use_pallas, antithetic,
 ):
-    fused_body, plain_body = _backward_bodies(
-        monomials, num_extra_decisions, ratchet_is_step, axis_name, use_pallas,
-        snap_interp, pred_passes,
-    )
+    body = _backward_body(monomials, num_extra_decisions, axis_name, use_pallas)
     return _process_backward_segment(
-        stream, carry, entry_state, seg, is_first,
-        fused_body if fused else plain_body, fused, antithetic,
+        stream, carry, entry_state, seg, body, antithetic,
     )
 
 
 _FWD_SEG_STATICS = (
     "monomials", "num_extra_decisions", "discount_deltas", "ratchet_is_step",
-    "axis_name", "antithetic", "fused", "fwd_pred_passes",
+    "axis_name", "antithetic",
 )
 
 
@@ -1811,33 +1451,23 @@ _FWD_SEG_STATICS = (
 def _forward_segment_chunk_jit(
     stream: StreamedSims, carry, seg,
     *, monomials, num_extra_decisions, discount_deltas, ratchet_is_step,
-    axis_name, antithetic, fused, fwd_pred_passes=2,
+    axis_name, antithetic,
 ):
-    s_local = stream.path_ids.shape[0]
-    dtype = carry[0].dtype
-    sim_tile = forward_kernel.pick_fwd_sim_tile(s_local)
-    fused_body, plain_body = _forward_bodies(
+    body = _forward_body(
         monomials, num_extra_decisions, discount_deltas, ratchet_is_step,
-        axis_name, False, s_local, sim_tile, dtype,
-        fwd_pred_passes=fwd_pred_passes,
+        axis_name, False, carry[0].dtype,
     )
-    body = fused_body if fused else plain_body
     return _stream_forward_segment_scan(stream, carry, seg, body, antithetic)
 
 
-# ------------------- multi-device host-chunked execution (VERDICT r04 item 6)
+# ------------------- multi-device host-chunked execution
 #
 # The host-chunked drivers dispatch one jitted call per seg_len-step segment.
 # On a multi-device host each segment call is wrapped in a shard_map over the
 # local 1-D path mesh: carries with a trailing sim axis stay device-sharded
 # between segments, per-step parameters are replicated, and the engine bodies
 # run with axis_name = the mesh axis so the regression reductions psum exactly
-# as in the non-chunked sharded path.  One boundary subtlety: the fused
-# backward carry holds PER-SHARD partial moments (each step's kernel
-# accumulates local partials; fused_body psums them at the START of the next
-# step).  A shard-varying value with no sim axis cannot cross a shard_map
-# boundary, so the wrappers pmean the moment leaves at segment exit — the next
-# segment's first-step psum then yields n_dev * pmean = the exact global sum.
+# as in the non-chunked sharded path.
 
 _MESH_AXIS = "paths"  # == parallel.mesh.AXIS (literal: avoids a module cycle)
 
@@ -1845,34 +1475,18 @@ _MESH_AXIS = "paths"  # == parallel.mesh.AXIS (literal: avoids a module cycle)
 class _ChunkedMeshCalls:
     """shard_map-per-segment wrappers for the host-chunked drivers."""
 
-    def __init__(self, mesh, fused: bool):
+    def __init__(self, mesh):
         from jax.sharding import PartitionSpec
 
         self.mesh = mesh
-        self.fused = fused
         self.P = PartitionSpec
         ax = _MESH_AXIS
         self.stream_spec = StreamedSims(
             decay=self.P(), chol=self.P(), vols=self.P(), half_var=self.P(),
             fwd=self.P(), key=self.P(), path_ids=self.P(ax),
         )
-        self.carry_spec = (
-            (self.P(None, ax), self.P(), self.P(), self.P(), self.P())
-            if fused else self.P(None, ax)
-        )
         self.row_spec = self.P(ax)          # [S]
         self.state_spec = self.P(None, ax)  # [F, S] / [G, S]
-
-    def _pmean_moments(self, carry):
-        if not self.fused:
-            return carry
-        v, xtx, xty, mean, std = carry
-        return (
-            v,
-            jax.lax.pmean(xtx, _MESH_AXIS),
-            jax.lax.pmean(xty, _MESH_AXIS),
-            mean, std,
-        )
 
     def _map(self, fn, in_specs, out_specs):
         return jax.shard_map(
@@ -1890,23 +1504,18 @@ class _ChunkedMeshCalls:
         )(stream)
 
     def init_streamed(self, arrays, stream, x_last, **statics):
-        def fn(arr, st, xl):
-            return self._pmean_moments(
-                _backward_init_streamed_jit(arr, st, xl, **statics)
-            )
+        fn = lambda arr, st, xl: _backward_init_streamed_jit(arr, st, xl, **statics)
         return self._map(
-            fn, (self.P(), self.stream_spec, self.state_spec), self.carry_spec
+            fn, (self.P(), self.stream_spec, self.state_spec), self.state_spec
         )(arrays, stream, x_last)
 
-    def bwd_seg_streamed(self, stream, carry, entry, seg, is_first, **statics):
-        def fn(st, c, e, sg, fi):
-            c2, out = _backward_segment_chunk_jit(st, c, e, sg, fi, **statics)
-            return self._pmean_moments(c2), out
+    def bwd_seg_streamed(self, stream, carry, entry, seg, **statics):
+        fn = lambda st, c, e, sg: _backward_segment_chunk_jit(st, c, e, sg, **statics)
         return self._map(
             fn,
-            (self.stream_spec, self.carry_spec, self.state_spec, self.P(), self.P()),
-            (self.carry_spec, self.P()),
-        )(stream, carry, entry, seg, is_first)
+            (self.stream_spec, self.state_spec, self.state_spec, self.P()),
+            (self.state_spec, self.P()),
+        )(stream, carry, entry, seg)
 
     def fwd_seg_streamed(self, stream, carry, seg, **statics):
         fwd_carry_spec = (self.row_spec, self.row_spec, self.state_spec)
@@ -1921,31 +1530,18 @@ class _ChunkedMeshCalls:
         P, ax = self.P, _MESH_AXIS
         return {
             k: (
-                P(None, ax) if k in ("spot", "spot_prev")
-                else P(None, None, ax) if k in ("factors", "factors_prev")
+                P(None, ax) if k == "spot"
+                else P(None, None, ax) if k == "factors"
                 else P()
             )
             for k in seg
         }
 
-    def init_mat(self, arrays, spot_last, factors_last, spot_end, **statics):
-        def fn(arr, sl, fl, se):
-            return self._pmean_moments(
-                _backward_init_mat_jit(arr, sl, fl, se, **statics)
-            )
-        return self._map(
-            fn,
-            (self.P(), self.row_spec, self.state_spec, self.row_spec),
-            self.carry_spec,
-        )(arrays, spot_last, factors_last, spot_end)
-
     def bwd_seg_mat(self, carry, seg, **statics):
-        def fn(c, sg):
-            c2, out = _backward_segment_chunk_mat_jit(c, sg, **statics)
-            return self._pmean_moments(c2), out
+        fn = lambda c, sg: _backward_segment_chunk_mat_jit(c, sg, **statics)
         return self._map(
-            fn, (self.carry_spec, self._mat_seg_spec(seg)),
-            (self.carry_spec, self.P()),
+            fn, (self.state_spec, self._mat_seg_spec(seg)),
+            (self.state_spec, self.P()),
         )(carry, seg)
 
     def fwd_seg_mat(self, carry, seg, **statics):
@@ -1999,8 +1595,6 @@ def lsmc_core_streamed_chunked(
     terminal_fn,
     ratchet_is_step: bool,
     use_pallas: bool = False,
-    snap_interp: tp.Optional[bool] = None,
-    pred_passes: int = 2,
     seg_len: int = 16,
     antithetic: bool = False,
     same_sims: bool = False,
@@ -2015,9 +1609,8 @@ def lsmc_core_streamed_chunked(
     forward passes.  Raising from the callback aborts the valuation between
     segments (cooperative cancellation with ≤ seg_len steps of latency).
     Single-process; with a multi-device ``mesh`` every segment runs
-    shard_map'd over the local path mesh (interactivity no longer costs a
-    multi-chip host its sharding — see _ChunkedMeshCalls)."""
-    use_pallas = use_pallas and not has_generic(monomials)  # generic basis -> XLA path
+    shard_map'd over the local path mesh (see _ChunkedMeshCalls)."""
+    use_pallas = _kernel_eligible(use_pallas, monomials)
     grids = arrays["grids"]
     n = grids.shape[0] - 1
     seg_len = max(1, min(seg_len, n))
@@ -2026,16 +1619,7 @@ def lsmc_core_streamed_chunked(
     dtype = grids.dtype
     s_local = path_ids.shape[0]
     mesh = _resolve_chunked_mesh(mesh, s_local)
-    # Kernel eligibility must be decided on the PER-SHARD path count: inside
-    # the per-segment shard_map each device sees s_local / n_dev sims, and a
-    # global count that tiles while the shard does not would reach the
-    # kernels with tile 0 (grid division by zero at trace time).
-    s_shard = s_local // mesh.devices.size if mesh is not None else s_local
-    use_pallas = use_pallas and decision_kernel.pick_sim_tile(s_shard) > 0
-    if snap_interp is None:
-        snap_interp = use_pallas
-    fused = use_pallas and sim_inputs["decay"].shape[1] > 0
-    mcalls = _ChunkedMeshCalls(mesh, fused) if mesh is not None else None
+    mcalls = _ChunkedMeshCalls(mesh) if mesh is not None else None
     eff_axis = _MESH_AXIS if mcalls is not None else None
 
     reg_stream = StreamedSims(
@@ -2050,10 +1634,7 @@ def lsmc_core_streamed_chunked(
             segment_cb(phase, done, total)
 
     # ---- backward, latest segment first.
-    init_statics = dict(
-        monomials=monomials, terminal_fn=terminal_fn, axis_name=eff_axis,
-        fused=fused, antithetic=antithetic,
-    )
+    init_statics = dict(terminal_fn=terminal_fn, antithetic=antithetic)
     if mcalls is not None:
         checkpoints, ragged_entry, x_last = mcalls.warmup(
             reg_stream, seg_len, antithetic
@@ -2068,15 +1649,12 @@ def lsmc_core_streamed_chunked(
         )
     per_step = _backward_per_step(arrays)
     per_step.update(_backward_prep_all(
-        per_step, num_extra_decisions, ratchet_is_step, snap_interp,
-        with_w_mat=use_pallas,
+        per_step, num_extra_decisions, ratchet_is_step,
     ))
     per_step.update(_stream_step_arrays(reg_stream, n))
     statics = dict(
         monomials=monomials, num_extra_decisions=num_extra_decisions,
-        ratchet_is_step=ratchet_is_step, axis_name=eff_axis, use_pallas=use_pallas,
-        snap_interp=snap_interp, pred_passes=pred_passes, antithetic=antithetic,
-        fused=fused,
+        axis_name=eff_axis, use_pallas=use_pallas, antithetic=antithetic,
     )
     bwd_call = (
         mcalls.bwd_seg_streamed if mcalls is not None
@@ -2087,33 +1665,29 @@ def lsmc_core_streamed_chunked(
     if r > 0:
         seg = jax.tree.map(lambda a: a[m * seg_len :], per_step)
         carry, reg_chunks[total - 1] = bwd_call(
-            reg_stream, carry, ragged_entry, seg, jnp.asarray(m == 0), **statics
+            reg_stream, carry, ragged_entry, seg, **statics
         )
         done += 1
         tick("backward", done)
     for i in reversed(range(m)):
         seg = jax.tree.map(lambda a: a[i * seg_len : (i + 1) * seg_len], per_step)
         carry, reg_chunks[i] = bwd_call(
-            reg_stream, carry, checkpoints[i], seg, jnp.asarray(i == 0), **statics
+            reg_stream, carry, checkpoints[i], seg, **statics
         )
         done += 1
         tick("backward", done)
     regression = jax.tree.map(
         lambda *chunks: jnp.concatenate(chunks, axis=0), *reg_chunks
     )
-    v0 = carry[0] if fused else carry
+    v0 = carry
 
     # ---- forward, segments in time order.
-    fwd_fused = _resolve_forward_fused(
-        use_pallas, False, dtype, forward_kernel.pick_fwd_sim_tile(s_shard)
-    )
-    fper = _forward_per_step(arrays, regression, fwd_fused)
+    fper = _forward_per_step(arrays, regression)
     fper.update(_stream_step_arrays(val_stream, n))
     fstatics = dict(
         monomials=monomials, num_extra_decisions=num_extra_decisions,
         discount_deltas=discount_deltas, ratchet_is_step=ratchet_is_step,
-        axis_name=eff_axis, antithetic=antithetic, fused=fwd_fused,
-        fwd_pred_passes=pred_passes,
+        axis_name=eff_axis, antithetic=antithetic,
     )
     fwd_call = (
         mcalls.fwd_seg_streamed if mcalls is not None
@@ -2155,74 +1729,44 @@ def lsmc_core_streamed_chunked(
 
 # ------------------------------ host-chunked execution, materialised panels
 #
-# VERDICT r03 item 4: the segment drivers above only covered streamed
-# (internally simulated) runs, so a ``value_from_sims`` call — or any
-# materialised valuation — with a progress callback got ~5 phase-boundary
-# polls and was uncancellable mid-pass (the reference polls every period on
-# every path, LsmcStorageValuation.cs:343-345,521).  These wrappers run the
-# SAME scan bodies over host-sliced panel segments: results are identical to
-# ``lsmc_core`` (same per-step arithmetic; scan partitioning does not change
-# it — pinned by tests/test_progress_cancellation.py).
+# The segment drivers above cover streamed (internally simulated) runs; a
+# ``value_from_sims`` call — or any materialised valuation — with a progress
+# callback runs the SAME scan bodies over host-sliced panel segments, so it
+# is polled every segment and cancellable mid-pass like the reference (which
+# polls every period on every path, LsmcStorageValuation.cs:343-345,521).
+# Results are identical to ``lsmc_core`` (same per-step arithmetic; scan
+# partitioning does not change it — pinned by
+# tests/test_progress_cancellation.py).
 
 
-@partial(
-    jax.jit,
-    static_argnames=("monomials", "terminal_fn", "axis_name", "fused"),
-)
-def _backward_init_mat_jit(
-    arrays, spot_last, factors_last, spot_end,
-    *, monomials, terminal_fn, axis_name, fused,
-):
-    grids = arrays["grids"]
-    n = grids.shape[0] - 1
-    dtype = grids.dtype
-    v_end = _terminal_values(
-        terminal_fn, spot_end, grids[n], grids.shape[1], spot_end.shape[0], dtype
-    )
-    if not fused:
-        return v_end
-    xtx0, xty0, mean0, std0 = _fused_bootstrap(
-        monomials, spot_last, factors_last, v_end, axis_name, dtype
-    )
-    return (v_end, xtx0, xty0, mean0, std0)
+_BWD_MAT_STATICS = ("monomials", "num_extra_decisions", "axis_name", "use_pallas")
 
 
-@partial(jax.jit, static_argnames=_BWD_SEG_STATICS)
+@partial(jax.jit, static_argnames=_BWD_MAT_STATICS)
 def _backward_segment_chunk_mat_jit(
-    carry, seg,
-    *, monomials, num_extra_decisions, ratchet_is_step, axis_name, use_pallas,
-    snap_interp, pred_passes, antithetic, fused,
+    carry, seg, *, monomials, num_extra_decisions, axis_name, use_pallas,
 ):
-    del antithetic  # materialised panels carry no RNG identity
-    fused_body, plain_body = _backward_bodies(
-        monomials, num_extra_decisions, ratchet_is_step, axis_name, use_pallas,
-        snap_interp, pred_passes,
-    )
-    return jax.lax.scan(
-        fused_body if fused else plain_body, carry, seg, reverse=True
-    )
+    body = _backward_body(monomials, num_extra_decisions, axis_name, use_pallas)
+    return jax.lax.scan(body, carry, seg, reverse=True)
 
 
 @partial(
     jax.jit,
-    static_argnames=_FWD_SEG_STATICS + ("return_sim_data", "uniform_grids"),
+    static_argnames=(
+        "monomials", "num_extra_decisions", "discount_deltas",
+        "ratchet_is_step", "axis_name", "return_sim_data", "uniform_grids",
+    ),
 )
 def _forward_segment_chunk_mat_jit(
     carry, seg,
     *, monomials, num_extra_decisions, discount_deltas, ratchet_is_step,
-    axis_name, antithetic, fused, return_sim_data, uniform_grids=True,
-    fwd_pred_passes=2,
+    axis_name, return_sim_data, uniform_grids=True,
 ):
-    del antithetic
-    s_local = carry[0].shape[0]
-    dtype = carry[0].dtype
-    sim_tile = forward_kernel.pick_fwd_sim_tile(s_local)
-    fused_body, plain_body = _forward_bodies(
+    body = _forward_body(
         monomials, num_extra_decisions, discount_deltas, ratchet_is_step,
-        axis_name, return_sim_data, s_local, sim_tile, dtype,
-        uniform_grids=uniform_grids, fwd_pred_passes=fwd_pred_passes,
+        axis_name, return_sim_data, carry[0].dtype, uniform_grids=uniform_grids,
     )
-    return jax.lax.scan(fused_body if fused else plain_body, carry, seg)
+    return jax.lax.scan(body, carry, seg)
 
 
 def lsmc_core_chunked(
@@ -2238,8 +1782,6 @@ def lsmc_core_chunked(
     terminal_fn,
     ratchet_is_step: bool,
     use_pallas: bool = False,
-    snap_interp: tp.Optional[bool] = None,
-    pred_passes: int = 2,
     seg_len: int = 16,
     return_sim_data: bool = False,
     return_regression: bool = False,
@@ -2254,9 +1796,7 @@ def lsmc_core_chunked(
     callback aborts between segments.  Single-process; with a multi-device
     ``mesh`` every segment runs shard_map'd over the local path mesh (see
     _ChunkedMeshCalls)."""
-    use_pallas = use_pallas and not has_generic(monomials)  # generic basis -> XLA path
-    if not uniform_grids:
-        use_pallas = False  # general-interp XLA path (see lsmc_core)
+    use_pallas = _kernel_eligible(use_pallas, monomials, uniform_grids)
     grids = arrays["grids"]
     n = grids.shape[0] - 1
     seg_len = max(1, min(seg_len, n))
@@ -2265,13 +1805,7 @@ def lsmc_core_chunked(
     dtype = grids.dtype
     s_local = spot_reg.shape[1]
     mesh = _resolve_chunked_mesh(mesh, s_local)
-    # Per-shard kernel eligibility — see lsmc_core_streamed_chunked.
-    s_shard = s_local // mesh.devices.size if mesh is not None else s_local
-    use_pallas = use_pallas and decision_kernel.pick_sim_tile(s_shard) > 0
-    if snap_interp is None:
-        snap_interp = use_pallas
-    fused = use_pallas and factors_reg.shape[1] > 0
-    mcalls = _ChunkedMeshCalls(mesh, fused) if mesh is not None else None
+    mcalls = _ChunkedMeshCalls(mesh) if mesh is not None else None
     eff_axis = _MESH_AXIS if mcalls is not None else None
 
     def tick(phase, done):
@@ -2280,48 +1814,17 @@ def lsmc_core_chunked(
 
     statics = dict(
         monomials=monomials, num_extra_decisions=num_extra_decisions,
-        ratchet_is_step=ratchet_is_step, axis_name=eff_axis, use_pallas=use_pallas,
-        snap_interp=snap_interp, pred_passes=pred_passes, antithetic=False,
-        fused=fused,
+        axis_name=eff_axis, use_pallas=use_pallas,
     )
-    init_statics = dict(
-        monomials=monomials, terminal_fn=terminal_fn, axis_name=eff_axis,
-        fused=fused,
+    carry = _terminal_values(
+        terminal_fn, spot_reg[n], grids[n], grids.shape[1], s_local, dtype
     )
-    if mcalls is not None:
-        carry = mcalls.init_mat(
-            arrays, spot_reg[n - 1], factors_reg[n - 1], spot_reg[n],
-            **init_statics,
-        )
-    else:
-        carry = _backward_init_mat_jit(
-            arrays, spot_reg[n - 1], factors_reg[n - 1], spot_reg[n],
-            **init_statics,
-        )
     per_step = _backward_per_step(arrays)
     per_step.update(_backward_prep_all(
-        per_step, num_extra_decisions, ratchet_is_step, snap_interp,
-        with_w_mat=use_pallas, uniform_grids=uniform_grids,
+        per_step, num_extra_decisions, ratchet_is_step, uniform_grids,
     ))
     per_step["spot"] = spot_reg[:n]
     per_step["factors"] = factors_reg[:n]
-
-    def bwd_segment(lo, hi):
-        seg = jax.tree.map(lambda a: a[lo:hi], per_step)
-        if fused:
-            # Previous-step slices for the in-kernel moment accumulation
-            # (t = 0 clamps to itself, as in lsmc_backward).
-            if lo > 0:
-                seg["spot_prev"] = spot_reg[lo - 1 : hi - 1]
-                seg["factors_prev"] = factors_reg[lo - 1 : hi - 1]
-            else:
-                seg["spot_prev"] = jnp.concatenate(
-                    [spot_reg[0:1], spot_reg[: hi - 1]], axis=0
-                )
-                seg["factors_prev"] = jnp.concatenate(
-                    [factors_reg[0:1], factors_reg[: hi - 1]], axis=0
-                )
-        return seg
 
     bwd_call = (
         mcalls.bwd_seg_mat if mcalls is not None
@@ -2329,35 +1832,26 @@ def lsmc_core_chunked(
     )
     reg_chunks: tp.List[tp.Any] = [None] * total
     done = 0
-    if r > 0:
-        carry, reg_chunks[total - 1] = bwd_call(
-            carry, bwd_segment(m * seg_len, n), **statics
-        )
-        done += 1
-        tick("backward", done)
-    for i in reversed(range(m)):
-        carry, reg_chunks[i] = bwd_call(
-            carry, bwd_segment(i * seg_len, (i + 1) * seg_len), **statics
-        )
+    bounds = [(m * seg_len, n)] if r > 0 else []
+    bounds += [(i * seg_len, (i + 1) * seg_len) for i in reversed(range(m))]
+    for lo, hi in bounds:
+        seg = jax.tree.map(lambda a: a[lo:hi], per_step)
+        carry, reg_chunks[lo // seg_len] = bwd_call(carry, seg, **statics)
         done += 1
         tick("backward", done)
     regression = jax.tree.map(
         lambda *chunks: jnp.concatenate(chunks, axis=0), *reg_chunks
     )
-    v0 = carry[0] if fused else carry
+    v0 = carry
 
-    fwd_fused = _resolve_forward_fused(
-        use_pallas, return_sim_data, dtype, forward_kernel.pick_fwd_sim_tile(s_shard)
-    )
-    fper = _forward_per_step(arrays, regression, fwd_fused)
+    fper = _forward_per_step(arrays, regression)
     fper["spot"] = spot_val[:n]
     fper["factors"] = factors_val[:n]
     fstatics = dict(
         monomials=monomials, num_extra_decisions=num_extra_decisions,
         discount_deltas=discount_deltas, ratchet_is_step=ratchet_is_step,
-        axis_name=eff_axis, antithetic=False, fused=fwd_fused,
-        return_sim_data=return_sim_data, uniform_grids=uniform_grids,
-        fwd_pred_passes=pred_passes,
+        axis_name=eff_axis, return_sim_data=return_sim_data,
+        uniform_grids=uniform_grids,
     )
     fwd_call = (
         mcalls.fwd_seg_mat if mcalls is not None

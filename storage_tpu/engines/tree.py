@@ -118,10 +118,10 @@ def _tree_core(
 
     def backward_step(v_next, x):
         # Expected continuation rows per node (TreeStorageValuation.cs:325-330),
-        # as one dense [M, M] x [M, G] matmul on the MXU.
-        # precision=HIGHEST: TPU matmuls default to bf16 inputs, which loses
-        # ~0.3% of NPV over a backward induction; this matrix is tiny so full
-        # f32 passes are free.
+        # as one dense [M, M] x [M, G] matmul.
+        # precision=HIGHEST: the GPU's default f32 matmul rounds operands to
+        # TF32, and that error compounds over the backward induction; this
+        # matrix is tiny so full f32 passes are free.
         ev = jnp.dot(
             x["transition"], v_next,
             preferred_element_type=v_next.dtype,
@@ -234,7 +234,7 @@ def tree_valuation(
         "q0": jnp.asarray(tree.q[o], dtype),
         "dest_centre": jnp.asarray(tree.dest_centre),
     }
-    terminal_fn = None if compiled.must_be_empty_at_end else compiled.terminal_value
+    terminal_fn = compiled.engine_terminal_fn
     return _tree_core(
         arrays,
         tree_arrays,

@@ -401,10 +401,25 @@ class CompiledStorage:
 
     def terminal_value(self, price, inventory):
         if self.terminal_npv is None:
-            import jax.numpy as jnp
-
-            return jnp.zeros(jnp.broadcast_shapes(jnp.shape(price), jnp.shape(inventory)))
+            return _zero_terminal_value(price, inventory)
         return self.terminal_npv(price, inventory)
+
+    @property
+    def engine_terminal_fn(self):
+        """The terminal value as the engines take it (a jit static argument):
+        None when the facility must end empty, else the user's own function
+        or a module-level zero.  Both keep their identity from one
+        ``compile_storage`` to the next, so revaluing a facility reuses the
+        compiled engine instead of tracing it anew."""
+        if self.must_be_empty_at_end:
+            return None
+        return self.terminal_npv or _zero_terminal_value
+
+
+def _zero_terminal_value(price, inventory):
+    import jax.numpy as jnp
+
+    return jnp.zeros(jnp.broadcast_shapes(jnp.shape(price), jnp.shape(inventory)))
 
 
 def compile_storage(storage: CmdtyStorage, val_period: pd.Period) -> CompiledStorage:

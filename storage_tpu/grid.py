@@ -208,7 +208,7 @@ def inventory_grids(
 
     Static shape per period (unlike the reference's variable-length
     ``FixedSpacingStateSpaceGridCalc`` grids, FixedSpacingStateSpaceGridCalc.cs:34-81)
-    — same continuum limit, but jit/TPU friendly.  Degenerate bands collapse to
+    — same continuum limit, but static shapes for jit.  Degenerate bands collapse to
     a constant grid.
     """
     num_periods = len(lower)
@@ -275,7 +275,7 @@ def inventory_grids_custom(
 def rows_uniform(grids) -> bool:
     """True when every grid row is evenly spaced (within f32-scale
     tolerance): such grids keep the engines' fast arithmetic-position
-    interpolation and the fused kernels; anything else routes to the
+    interpolation and the decision kernel; anything else routes to the
     general compare-count interpolation."""
     g = np.asarray(grids, dtype=np.float64)
     if g.shape[1] < 3:
@@ -328,7 +328,7 @@ def ratchet_rates(ratchet_inv, ratchet_min, ratchet_max, is_step: bool, inventor
     """
     inv = jnp.clip(inventory, ratchet_inv[0], ratchet_inv[-1])
     # Segment index by counting nodes <= inv (tables are tiny, so R vectorised
-    # compares beat searchsorted's binary-search lowering on TPU).
+    # compares replace a searchsorted binary search).
     idx = jnp.zeros(jnp.shape(inv), dtype=jnp.int32)
     for r in range(1, ratchet_inv.shape[0] - 1):
         idx = idx + (inv >= ratchet_inv[r]).astype(jnp.int32)

@@ -21,43 +21,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pandas as pd
-from jax.extend import random as jex_random
-
-try:  # fast path: bind the threefry primitive with (hi, lo) operand pairs
-    from jax._src.prng import threefry2x32_p as _threefry2x32_p
-except Exception:  # pragma: no cover - jax internals moved; public fallback
-    _threefry2x32_p = None
+# Binding the threefry primitive directly takes the (hi, lo) counter pair as
+# two operands (private to JAX; present in the installed 0.9 line).
+from jax._src.prng import threefry2x32_p as _threefry2x32_p
 
 from . import multi_factor as mf
-from ..ops import rng_kernel
 from ..utils import periods as pu
-
-_RNG_PALLAS_ENV = "STORAGE_TPU_RNG_PALLAS"
-
-
-def resolve_rng_pallas(use_pallas: tp.Optional[bool], dtype, num_paths: int) -> bool:
-    """Resolve whether the Pallas draw kernel (ops/rng_kernel) runs: OFF by
-    default (perf-neutral, see below), opt-in via ``STORAGE_TPU_RNG_PALLAS=1``
-    on TPU f32 workloads whose path count tiles onto lanes; CPU tests / f64
-    validation / ragged path counts always keep the pure-XLA pipeline
-    (bit-identical values)."""
-    import os
-
-    if use_pallas is not None:
-        return bool(use_pallas)
-    env = os.environ.get(_RNG_PALLAS_ENV)
-    if env is not None and env not in ("0", "false", "False"):
-        return (
-            jax.default_backend() == "tpu"
-            and jnp.dtype(dtype) == jnp.float32
-            and num_paths % 128 == 0
-        )
-    # Default OFF: the kernel is bit-identical and removes the broadcast
-    # counter panels, but measured perf-neutral vs XLA's fused lowering
-    # (30.5 vs 30.2 ms per 262k-path draw sweep; the hash+erfinv compute is
-    # the VPU floor either way — docs/ROOFLINE.md round-4 notes).  Kept as
-    # the iota-counter foundation for future fused-simulation work.
-    return False
 
 
 class SpotSimResults(tp.NamedTuple):
@@ -112,23 +81,16 @@ def _hash_counter_pairs(key, hi, lo):
     the second, so concatenating [hi, lo] makes every hash depend only on
     the counter VALUES — independent of batch layout (the subset/shard-
     invariance property) — and a single primitive call covers any set of
-    (path, step) draws (per-step fold_in + vmap-over-keys measured ~1.8x
-    slower in the simulation sweep).  ``hi``/``lo`` any equal shape; returns
+    (path, step) draws (per-step fold_in + vmap-over-keys hashes per key
+    instead of in one call).  ``hi``/``lo`` any equal shape; returns
     two word arrays of that shape."""
     key_pair = jax.random.key_data(key)
-    if _threefry2x32_p is not None:
-        # Bind the primitive with the (hi, lo) operands directly: identical
-        # values to the public API's concat/split form (pinned by
-        # tests/test_multi_factor_model.py), but the broadcasted counter
-        # arrays fuse into the hash kernel instead of materialising a
-        # concatenated copy.
-        out = _threefry2x32_p.bind(key_pair[0], key_pair[1], hi, lo)
-        return out[0], out[1]
-    out = jex_random.threefry_2x32(
-        key_pair, jnp.concatenate([hi.ravel(), lo.ravel()])
-    )
-    m = hi.size
-    return out[:m].reshape(hi.shape), out[m:].reshape(hi.shape)
+    # Bind the primitive with the (hi, lo) operands directly: identical
+    # values to the public API's concat/split form (pinned by
+    # tests/test_rng_kernel.py), but the broadcasted counter arrays fuse
+    # into the hash kernel instead of materialising a concatenated copy.
+    out = _threefry2x32_p.bind(key_pair[0], key_pair[1], hi, lo)
+    return out[0], out[1]
 
 
 def step_normals(
@@ -147,7 +109,7 @@ def step_normals(
     ``W = step·F + factor`` of path ``path_id`` (f32; f64 uses block
     ``step·F + factor`` whole).  Any step's draws recompute in isolation from
     the global path ids — the property behind both shard-count invariance and
-    the streamed engine's in-scan regeneration (VERDICT r02 item 1) — and
+    the streamed engine's in-scan regeneration — and
     bulk draws over many steps collapse into one optimally-packed hash call
     (``multi_step_normals``: S·F/2 hashes per step, no padding waste)."""
     ids = (path_ids // 2 if antithetic else path_ids).astype(jnp.uint32)
@@ -195,22 +157,14 @@ def draw_normal_halves(
     num_factors: int,
     antithetic: bool,
     dtype,
-    use_pallas: tp.Optional[bool] = None,
-    interpret: bool = False,
 ):
     """f32 bulk draws WITHOUT the word-interleave pass: returns
     (z1, z2) [nb, S] — the normal-transformed first/second words of blocks
     b0..b0+nb-1 with b0 = (start·F)//2 — plus the traced b0 offset.  The
     normal transform is per-word, so values are identical to
     ``multi_step_normals``; consumers assemble each step's [F, S] slice with
-    ``step_z_from_halves`` (4 small row reads instead of relayouting the
-    whole ~GB panel, measured ~10 ms per 262k-path sweep).
-
-    With ``STORAGE_TPU_RNG_PALLAS=1`` (env-gated opt-in, default OFF —
-    measured perf-neutral vs XLA's fused lowering) TPU f32 draws run in the
-    fused Pallas kernel (ops/rng_kernel): counters from iota in registers,
-    hash + inverse-normal on-tile.  Values are bit-identical either way
-    (tests/test_rng_kernel.py)."""
+    ``step_z_from_halves`` (a few small row reads instead of interleaving
+    the whole panel)."""
     assert jnp.dtype(dtype) != jnp.float64
     ids = (path_ids // 2 if antithetic else path_ids).astype(jnp.uint32)
     t, f, s = int(num_steps), num_factors, ids.shape[0]
@@ -218,20 +172,6 @@ def draw_normal_halves(
     nb = nw // 2 + 1
     start = jnp.asarray(start_step).astype(jnp.uint32)
     b0 = (start * jnp.uint32(f)) // jnp.uint32(2)
-    if resolve_rng_pallas(use_pallas, dtype, s) or interpret:
-        row_tile, s_tile = rng_kernel.pick_tiles(nb, s)
-        if row_tile > 0:
-            sign = (
-                jnp.where(path_ids % 2 == 0, 1.0, -1.0).astype(dtype)
-                if antithetic
-                else None
-            )
-            z1, z2 = rng_kernel.normal_halves_pallas(
-                jax.random.key_data(key), b0, nb, ids, sign,
-                with_sign=antithetic, row_tile=row_tile, s_tile=s_tile,
-                interpret=interpret,
-            )
-            return z1, z2, b0
     blocks = b0 + jnp.arange(nb, dtype=jnp.uint32)
     w1, w2 = _hash_counter_pairs(
         key,
@@ -281,8 +221,7 @@ def multi_step_normals(
     ``step_normals``, hashed in ONE optimally-packed threefry call
     (consecutive (step, factor) words share blocks, so the bulk sweep costs
     exactly S·T·F/2 hashes; per-step drawing inside a ``lax.scan``
-    additionally sequentialises the hashing, measured ~70 ms per 262k-path
-    sweep at the benchmark config)."""
+    additionally sequentialises the hashing)."""
     ids = (path_ids // 2 if antithetic else path_ids).astype(jnp.uint32)
     t, f, s = int(num_steps), num_factors, ids.shape[0]
     start = jnp.asarray(start_step).astype(jnp.uint32)
@@ -320,11 +259,17 @@ def multi_step_normals(
     return z
 
 
+# The simulator's contractions (K = F) run at HIGHEST: the GPU's default
+# f32 matmul rounds operands to TF32, which would perturb every path, and
+# the streamed engines must reproduce the bulk simulator's values.
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
 def ou_step(x, z, decay_k, chol_k):
     """One exact OU transition in the engines' [F, S] layout:
     x_k = decay_k ⊙ x_{k-1} + L_k z_k."""
     return x * decay_k[:, None] + jnp.dot(
-        chol_k, z, preferred_element_type=x.dtype
+        chol_k, z, preferred_element_type=x.dtype, precision=_HIGHEST
     )
 
 
@@ -332,7 +277,7 @@ def spot_from_state(x, fwd_k, half_var_k, vols_k):
     """ln S_k = ln F_k − half_var_k + vols_k·x, per path ([F, S] → [S])."""
     return jnp.exp(
         jnp.log(fwd_k) - half_var_k
-        + jnp.dot(vols_k, x, preferred_element_type=x.dtype)
+        + jnp.dot(vols_k, x, preferred_element_type=x.dtype, precision=_HIGHEST)
     )
 
 
@@ -384,12 +329,11 @@ def simulate_ou_paths(
     x0 = jnp.zeros((f, s), dtype=dtype)
     _, xs = jax.lax.scan(step, x0, xs_in)  # [P, F, S]
     # Spot assembly in ONE fused pass over the whole panel (computing it
-    # per-step inside the scan sequentialises ~40 ms of elementwise work at
-    # the bench config).  Same contraction order as spot_from_state, so the
+    # per-step inside the scan would sequentialise the elementwise work).  Same contraction order as spot_from_state, so the
     # streamed engines' per-step pricing is numerically identical.
     log_spot = (
         jnp.log(fwd)[:, None] - half_var[:, None]
-        + jnp.einsum("pfs,pf->ps", xs, vols)
+        + jnp.einsum("pfs,pf->ps", xs, vols, precision=_HIGHEST)
     )
     return SpotSimResults(spot=jnp.exp(log_spot), factors=xs)
 

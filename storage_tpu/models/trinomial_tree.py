@@ -2,7 +2,7 @@
 
 Replaces ``Cmdty.Core.Trees.OneFactorTrinomialTree.CreateTree`` (consumed at
 reference ``TreeStorageValuationExtensions.cs:93-118``) with an array-based
-recombining lattice designed for TPU backward induction:
+recombining lattice designed for array backward induction:
 
 * The lattice discretises the *dimensionless* OU state x (unit instantaneous
   vol, mean reversion a): x_{k+1} = e^{-aΔ}·x_k + ε, Var(ε) = (1-e^{-2aΔ})/(2a).
@@ -17,7 +17,7 @@ recombining lattice designed for TPU backward induction:
   ``num_substeps`` internal time steps per period for lattice convergence.
 * Instead of per-node destination gathers, each period's transition is the
   dense [M, M] matrix product of its substep transitions — backward induction
-  becomes ``EV = T_k @ V_next``, a clean MXU matmul.
+  becomes ``EV = T_k @ V_next``, one dense matmul.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Fused Pallas TPU kernel for the LSMC backward decision update.
+"""Pallas (Triton) kernel for the LSMC backward decision update.
 
 The backward step's hot loop (reference ``LsmcStorageValuation.cs:240-338``)
 evaluates, for every (inventory grid point g, decision d, simulation s):
@@ -7,763 +7,170 @@ evaluates, for every (inventory grid point g, decision d, simulation s):
     val_act[g,d,s] = immediate_pv[g,d](spot[s]) + actual_continuation[g,d,s]
     best_act[g,s]  = val_act[g, argmax_d val_reg[g,d,s], s]
 
-A straightforward XLA lowering materialises several [G, D, S] temporaries in
-HBM (~315 MB each at the benchmark config), making the step HBM-bound.  This
-kernel streams simulations through VMEM in tiles and keeps every [G, D, S_tile]
-intermediate on-chip, so per step the only HBM traffic is reading
-``v_act_next`` [G, S] and the design matrix [B, S] and writing ``best_act``
-[G, S] — a ~5-10x traffic reduction.
+The XLA body (``engines/lsmc.decision_update_xla``) writes the regressed continuations
+``pred`` [G, D, S] to device memory through a K = B matmul, reads them back
+and gathers rows of the [G, S] value panel 2·D times.  This kernel does the
+whole update for one (grid-row tile x sim tile) block in registers:
 
-Both continuations become MXU matmuls on the tile:
+* the regressed continuation is B FMAs per element against the block's
+  design-matrix rows (K ≈ 9 is far too small for tensor cores);
+* the actual continuation gathers rows ``lo`` and ``lo + 1`` of the value
+  panel by pointer — for a tile of adjacent grid rows they are adjacent
+  panel rows, so most of them come from L2;
+* a running argmax on regressed values realises the actual value, first
+  decision winning ties (LsmcStorageValuation.cs:310-336), exactly as the
+  XLA body does;
+* ``best_act`` is written once; no [G, D, S] temporary exists.
 
-* actual:    ``W[d] @ v_tile``   where ``W[d]`` [G, G] holds the two linear
-  interpolation hat weights per row (linear interpolation in inventory as a
-  sparse-in-dense matrix — gathers along the sublane axis are slow on TPU);
-* regressed: ``dci[d] @ dm_tile`` where ``dci[d] = ci[d] - ci[0]`` [G, B] are
-  the *differences* of the regression coefficients pre-interpolated to each
-  (g, d) target inventory (linear interpolation commutes with the linear
-  model).
-
-The running argmax matches the reference's anti-foresight trick: argmax on
-REGRESSED values while realising ACTUAL values, first decision wins ties
-(LsmcStorageValuation.cs:310-336).
-
-Two MXU-pass reductions keep the kernel fast without losing estimator
-quality (measured on v5e):
-
-* **Snapped hat weights.** ``snap_weights`` rounds the interpolation weight
-  to the 1/256 grid, which makes both ``w`` and ``1 - w`` exactly
-  representable in bfloat16 — the hat matmul then needs only TWO native-bf16
-  passes (``W @ v_hi + W @ v_lo``) for *exact* f32-grade interpolation.  The
-  snap is a deterministic 2^-8-of-a-grid-cell quadrature perturbation (the
-  inventory grid itself discretises far more coarsely), applied consistently
-  to the actual-continuation operator and the coefficient interpolation.
-* **Centred regressed values.** The argmax only needs the ORDER of the
-  regressed values, which is invariant to subtracting decision 0's fitted
-  continuation from every decision.  Computing ``q_d = (ci_d - ci_0) @ dm``
-  instead of two large, nearly-cancelling predictions both skips the d = 0
-  matmul entirely and evaluates the decision *gap* directly in coefficient
-  space, so split-precision error scales with the gap rather than with the
-  value level.
+Blocks read panel rows that other blocks write, so the output is a fresh
+buffer (no input/output aliasing).  Grid rows are the fast grid axis so the
+blocks of one sim tile run together and share their panel rows in L2.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-# Simulation-tile width: lane-dim multiple of 128.  2048 measured fastest for
-# the backward kernel on v5e (324 vs 330 ms/sweep at the bench config, round
-# 4; 4096 fails to compile); smaller sim counts fall through to the next
-# divisible candidate.  Per-tile working set at G=100, D=3 stays well inside
-# VMEM double-buffered.
-_TILE_CANDIDATES = (2048, 1024, 512, 256, 128)
+NUM_WARPS = 4
 
 
-def _split_bf16(x):
-    """Split f32 into (hi, lo) bf16 parts with x ~ hi + lo exactly to ~2^-16."""
-    hi = x.astype(jnp.bfloat16)
-    lo = (x - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    return hi, lo
+def block_shape(num_decisions: int):
+    """(grid-row block, sim block), powers of two as Triton requires.  From a
+    sweep on an H100 at G = 100, S = 262,144 (PERF.md): (8 x 128) ran fastest
+    with three decisions, (4 x 256) with five."""
+    return (8, 128) if num_decisions <= 3 else (4, 256)
 
 
-def _dot3(a_hi, a_lo, b_hi, b_lo):
-    """Split-precision matmul: 3 native-bf16 MXU passes reconstructing ~f32
-    accuracy (drops only the lo x lo cross term, ~2^-16 relative).  Measured
-    27% faster end-to-end than XLA's 6-pass HIGHEST f32 emulation with NPV
-    agreement to 4e-6 relative at the benchmark config.  The 2-pass variant
-    (dropping a_lo entirely) is NOT safe: it degraded forward NPV by ~1.6%
-    (18 MC standard errors) — backward induction compounds interpolation
-    noise through 365 argmax steps."""
-    f32 = jnp.float32
-    return (
-        jnp.dot(a_hi, b_hi, preferred_element_type=f32)
-        + jnp.dot(a_hi, b_lo, preferred_element_type=f32)
-        + jnp.dot(a_lo, b_hi, preferred_element_type=f32)
+_state = threading.local()
+
+
+@contextlib.contextmanager
+def interpret_mode():
+    """Run the kernel through the Pallas interpreter (tests on the CPU).
+
+    The flag is read while an engine is traced and is no part of any jit
+    cache key, so the caches are cleared on the way in and out: no trace
+    made in one mode is served to a call in the other."""
+    prev = getattr(_state, "interpret", False)
+    if not prev:
+        jax.clear_caches()
+    _state.interpret = True
+    try:
+        yield
+    finally:
+        _state.interpret = prev
+        if not prev:
+            jax.clear_caches()
+
+
+def interpreting() -> bool:
+    return getattr(_state, "interpret", False)
+
+
+def available() -> bool:
+    """Whether the kernel can run here: compiled on a GPU, or interpreted."""
+    return interpreting() or jax.default_backend() == "gpu"
+
+
+def _kernel(v_ref, dm_ref, spot_ref, ci_ref, lo_ref, w_ref, a_ref, b_ref,
+            out_ref, *, num_grid: int, num_sims: int, num_decisions: int,
+            num_basis: int, block_g: int, block_s: int):
+    g0 = pl.program_id(0) * block_g
+    s0 = pl.program_id(1) * block_s
+    gi = g0 + jnp.arange(block_g, dtype=jnp.int32)
+    si = s0 + jnp.arange(block_s, dtype=jnp.int32)
+    g_in = gi < num_grid
+    s_in = si < num_sims
+    gc = jnp.minimum(gi, num_grid - 1)  # rows past G repeat row G-1, unstored
+    mask = g_in[:, None] & s_in[None, :]
+
+    spot = plgpu.load(spot_ref.at[si], mask=s_in, other=0.0)  # [Ts]
+    dm = [
+        plgpu.load(dm_ref.at[k, si], mask=s_in, other=0.0)[None, :]
+        for k in range(num_basis)
+    ]
+
+    best_reg = best_act = None
+    for d in range(num_decisions):
+        pred = ci_ref[d, 0, gc][:, None] * dm[0]
+        for k in range(1, num_basis):
+            pred = pred + ci_ref[d, k, gc][:, None] * dm[k]
+        imm = a_ref[d, gc][:, None] * spot[None, :] + b_ref[d, gc][:, None]
+        lo = lo_ref[d, gc][:, None]
+        w = w_ref[d, gc][:, None]
+        v_lo = plgpu.load(v_ref.at[lo, si[None, :]], mask=mask, other=0.0)
+        v_hi = plgpu.load(v_ref.at[lo + 1, si[None, :]], mask=mask, other=0.0)
+        val_reg = imm + pred
+        val_act = imm + (v_lo * (1 - w) + v_hi * w)
+        if d == 0:
+            best_reg, best_act = val_reg, val_act
+        else:
+            better = val_reg > best_reg
+            best_reg = jnp.where(better, val_reg, best_reg)
+            best_act = jnp.where(better, val_act, best_act)
+    plgpu.store(
+        out_ref.at[pl.ds(g0, block_g), pl.ds(s0, block_s)], best_act, mask=mask
     )
 
 
-def snap_weights(w):
-    """Round interpolation weights to the 1/256 grid: both ``w`` and ``1 - w``
-    become exactly representable in bfloat16 (8 significand bits), so the hat
-    matmul is exact in two native-bf16 passes.  The positional perturbation is
-    ≤ 2^-9 of one grid cell — far inside the grid's own discretisation."""
-    return jnp.round(w * 256.0) / 256.0
-
-
-def _vpu_pred_gap(dci_d, dm, b_dim: int):
-    """Regressed-continuation gap ``dci[d] @ dm`` as B outer-product FMAs on
-    the VPU (f32, exact): the MXU form pads K = B ≈ 9 to 128 — >90% padding
-    waste — while the VPU evaluates exactly the useful flops and runs
-    concurrently with the hat matmuls on the MXU (kernel v4; measured split
-    in docs/ROOFLINE.md round-4 notes).  ``dci_d`` [G, B], ``dm`` [B, St]."""
-    q = dci_d[:, 0:1] * dm[0:1]
-    for bi in range(1, b_dim):
-        q = q + dci_d[:, bi : bi + 1] * dm[bi : bi + 1]
-    return q
-
-
-def _kernel(v_ref, dm_ref, spot_ref, w_ref, dci_ref, a_ref, b_ref, out_ref,
-            *, num_decisions: int, pred_passes: int):
-    f32 = jnp.float32
-    v = v_ref[...]        # [G, St] actual next-period values
-    dm = dm_ref[...]      # [B, St] standardised design matrix (transposed)
-    spot = spot_ref[...]  # [1, St]
-    v_hi, v_lo = _split_bf16(v)
-    if pred_passes >= 2:
-        dm_hi, dm_lo = _split_bf16(dm)
-
-    def hat(d):
-        # Actual continuation: linear interp in inventory as an MXU matmul.
-        # This is the value function carried across all backward steps, so it
-        # needs f32 fidelity — with snapped weights (exactly bf16) two passes
-        # give exactly that (only v's own bf16-pair rounding remains, ~2^-16).
-        w_bf = w_ref[d]  # bf16, exact
-        return (
-            jnp.dot(w_bf, v_hi, preferred_element_type=f32)
-            + jnp.dot(w_bf, v_lo, preferred_element_type=f32)
-        )
-
-    b_dim = dm.shape[0]
-    # Decision 0 is the comparison baseline: its regressed continuation is
-    # subtracted from every decision, so its own comparison value is just the
-    # immediate part.  Order (and ties: first decision wins) is unchanged.
-    imm0 = a_ref[0] * spot + b_ref[0]  # [G, 1] x [1, St] -> [G, St]
-    best_reg = imm0
-    best_act = hat(0) + imm0
-    for d in range(1, num_decisions):
-        # Regressed continuation GAP vs decision 0 at the (g, d) target
-        # inventories.  Drives the decision ARGMAX on a lower-bound estimator:
-        # full-magnitude single-pass bf16 biased NPV down ~1.4% (misselected
-        # decisions only ever lose value); the centred gap keeps error scaled
-        # by the gap itself.  pred_passes: 2 (default) = centred-gap
-        # split-precision MXU; 3 = validated 3-pass fallback; 1 = exact f32
-        # VPU outer-product accumulation (frees the MXU, measured e2e-neutral).
-        if pred_passes >= 3:
-            dci_hi, dci_lo = _split_bf16(dci_ref[d])
-            q = _dot3(dci_hi, dci_lo, dm_hi, dm_lo)  # [G, St]
-        elif pred_passes == 2:
-            dci_hi, _ = _split_bf16(dci_ref[d])
-            q = (
-                jnp.dot(dci_hi, dm_hi, preferred_element_type=f32)
-                + jnp.dot(dci_hi, dm_lo, preferred_element_type=f32)
-            )
-        else:
-            q = _vpu_pred_gap(dci_ref[d], dm, b_dim)
-        imm = a_ref[d] * spot + b_ref[d]
-        vr = q + imm
-        va = hat(d) + imm
-        better = vr > best_reg
-        best_reg = jnp.where(better, vr, best_reg)
-        best_act = jnp.where(better, va, best_act)
-    out_ref[...] = best_act
-
-
-def pick_sim_tile(num_sims: int) -> int:
-    for t in _TILE_CANDIDATES:
-        if num_sims % t == 0:
-            return t
-    return 0  # no aligned tile — caller falls back to the XLA path
-
-
-def _build_design_rows(monomials, spot, factors):
-    """Design-matrix rows [B, St] evaluated on a tile (VPU, unrolled) —
-    shared shape logic with forward_kernel._build_design."""
-    rows = []
-    for m in monomials:
-        row = jnp.ones_like(spot)
-        if m.spot_power:
-            p = spot
-            for _ in range(m.spot_power - 1):
-                p = p * spot
-            row = row * p
-        for idx, power in m.factor_powers:
-            f = factors[idx : idx + 1]
-            p = f
-            for _ in range(power - 1):
-                p = p * f
-            row = row * p
-        rows.append(row)
-    return jnp.concatenate(rows, axis=0)
-
-
-def _kernel_moments(v_ref, spot_ref, fac_ref, spot_prev_ref, fac_prev_ref,
-                    mean_ref, std_ref, w_ref, dci_ref, a_ref, b_ref,
-                    out_ref, xtx_ref, xty_t_ref,
-                    *, monomials, num_decisions: int, pred_passes: int):
-    """Decision update + raw regression moments for the NEXT backward step.
-
-    Identical decision logic to ``_kernel`` but with the design matrix built
-    in-VMEM from the simulated spot/factors (no [S, B] HBM materialisation),
-    plus on-tile accumulation of the raw normal-equation moments
-    ``XᵀX [B, B]`` and ``(Xᵀv)ᵀ [G, B]`` of step t-1's design matrix against
-    this step's output values — the operands are already resident, so the
-    extra HBM traffic of a separate regression pass (a second full read of
-    the value panel) disappears.  Standardisation happens analytically on the
-    [B, B] moments outside (ops/regression.standardise_moments).
-    """
-    f32 = jnp.float32
-    v = v_ref[...]        # [G, St]
-    spot = spot_ref[...]  # [1, St]
-    dm = _build_design_rows(monomials, spot, fac_ref[...])  # [B, St] raw
-    dm = (dm - mean_ref[...]) / std_ref[...]                # standardised
-    v_hi, v_lo = _split_bf16(v)
-    if pred_passes >= 2:
-        dm_hi, dm_lo = _split_bf16(dm)
-
-    def hat(d):
-        w_bf = w_ref[d]  # bf16, exact (snapped weights)
-        return (
-            jnp.dot(w_bf, v_hi, preferred_element_type=f32)
-            + jnp.dot(w_bf, v_lo, preferred_element_type=f32)
-        )
-
-    b_dim = dm.shape[0]
-    imm0 = a_ref[0] * spot + b_ref[0]
-    best_reg = imm0
-    best_act = hat(0) + imm0
-    for d in range(1, num_decisions):
-        if pred_passes >= 3:
-            dci_hi, dci_lo = _split_bf16(dci_ref[d])
-            q = _dot3(dci_hi, dci_lo, dm_hi, dm_lo)
-        elif pred_passes == 2:
-            dci_hi, _ = _split_bf16(dci_ref[d])
-            q = (
-                jnp.dot(dci_hi, dm_hi, preferred_element_type=f32)
-                + jnp.dot(dci_hi, dm_lo, preferred_element_type=f32)
-            )
-        else:
-            q = _vpu_pred_gap(dci_ref[d], dm, b_dim)
-        imm = a_ref[d] * spot + b_ref[d]
-        vr = q + imm
-        va = hat(d) + imm
-        better = vr > best_reg
-        best_reg = jnp.where(better, vr, best_reg)
-        best_act = jnp.where(better, va, best_act)
-    out_ref[...] = best_act
-
-    # ---- moments of step t-1's design matrix vs this step's values, in
-    # centred/scaled coordinates u = (x - mean_t)/std_t.  Raw moments would
-    # need the one-pass variance subtraction E[x²] - E[x]², which cancels
-    # catastrophically in f32 for near-deterministic columns (measured ~2%
-    # prediction error); with the adjacent step's stats as the centre the
-    # u-columns are O(1) with near-zero mean, and the EXACT standardisation
-    # of u happens losslessly outside (regression.standardise_moments +
-    # affine composition back to x-coordinates).
-    dmp = _build_design_rows(monomials, spot_prev_ref[...], fac_prev_ref[...])
-    dmp = (dmp - mean_ref[...]) / std_ref[...]
-    # XᵀX on the VPU: an MXU dot would pad both 9-dims to 128 (~200x waste).
-    cols = []
-    for i in range(b_dim):
-        cols.append(jnp.sum(dmp[i : i + 1] * dmp, axis=1, keepdims=True))  # [B, 1]
-    xtx_partial = jnp.concatenate(cols, axis=1)  # [B, B]
-    # (Xᵀv)ᵀ likewise: N = B ≈ 9 pads to 128 on the MXU, so B per-basis
-    # multiply + lane-reduction passes on the VPU (f32, more accurate than
-    # the split-precision dot it replaces) cost only the useful flops.
-    xty_cols = []
-    for i in range(b_dim):
-        xty_cols.append(
-            jnp.sum(best_act * dmp[i : i + 1], axis=1, keepdims=True)  # [G, 1]
-        )
-    xty_t_partial = jnp.concatenate(xty_cols, axis=1)  # [G, B]
-
-    @pl.when(pl.program_id(0) == 0)
-    def _init():
-        xtx_ref[...] = jnp.zeros_like(xtx_ref)
-        xty_t_ref[...] = jnp.zeros_like(xty_t_ref)
-
-    xtx_ref[...] += xtx_partial
-    xty_t_ref[...] += xty_t_partial
-
-
-@functools.partial(jax.jit, static_argnames=("sim_tile", "interpret", "pred_passes"))
-def decision_update_pallas(
-    v_act_next: jnp.ndarray,  # [G, S] f32
-    dm_std_t: jnp.ndarray,    # [B, S] f32
-    spot: jnp.ndarray,        # [S] f32
-    w: jnp.ndarray,           # [D, G, G] interp-weight matrices (snapped weights)
-    ci: jnp.ndarray,          # [D, G, B] interpolated regression coeffs
-    a: jnp.ndarray,           # [D, G] immediate-pv spot coefficient
-    b: jnp.ndarray,           # [D, G] immediate-pv constant
-    sim_tile: int,
-    interpret: bool = False,
-    pred_passes: int = 2,
-) -> jnp.ndarray:
-    g, s = v_act_next.shape
-    b_dim = dm_std_t.shape[0]
-    d = w.shape[0]
-    grid = (s // sim_tile,)
-    flops_per_tile = 2 * g * sim_tile * (g * d + b_dim * (d - 1))
-    # The 2-pass exact interpolation REQUIRES weights on the 1/256 grid
-    # (exactly bf16-representable).  Snapping here enforces the contract for
-    # callers that skipped it (idempotent when already snapped), so the bf16
-    # cast below is always lossless.
-    w_bf = snap_weights(w).astype(jnp.bfloat16)
-    # Centred coefficient gaps: decision 0's fitted continuation is the argmax
-    # baseline, so only the D-1 gap matmuls remain.
-    dci = ci - ci[0:1]
+def pallas_update(v_act_next, dm_std_t, spot, ci, idx_lo, w_hi, a, b, *,
+                  interpret: bool, block: tuple[int, int]) -> jnp.ndarray:
+    """The kernel call for an explicit (grid-row, sim) ``block``, unjitted;
+    ``decision_update`` takes its block from ``block_shape``."""
+    block_g, block_s = block
+    g, num_decisions = idx_lo.shape
+    num_basis, s = dm_std_t.shape
+    dtype = v_act_next.dtype
+    kernel = functools.partial(
+        _kernel, num_grid=g, num_sims=s, num_decisions=num_decisions,
+        num_basis=num_basis, block_g=block_g, block_s=block_s,
+    )
     return pl.pallas_call(
-        functools.partial(_kernel, num_decisions=d, pred_passes=pred_passes),
-        out_shape=jax.ShapeDtypeStruct((g, s), v_act_next.dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((g, sim_tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((b_dim, sim_tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, sim_tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d, g, g), lambda i: (0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d, g, b_dim), lambda i: (0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d, g, 1), lambda i: (0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d, g, 1), lambda i: (0, 0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((g, sim_tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-        cost_estimate=pl.CostEstimate(
-            flops=flops_per_tile * grid[0],
-            bytes_accessed=4 * s * (2 * g + b_dim + 1),
-            transcendentals=0,
-        ),
-        # The value panel is updated IN PLACE: without the alias XLA keeps a
-        # fresh [G, S] output buffer per scan step (measured ~10%/step copy
-        # cost at the bench config; bit-identical either way — each tile is
-        # read before its region is rewritten).
-        input_output_aliases={0: 0},
+        kernel,
+        out_shape=jax.ShapeDtypeStruct((g, s), dtype),
+        grid=(pl.cdiv(g, block_g), pl.cdiv(s, block_s)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
         interpret=interpret,
+        name="lsmc_decision_update",
     )(
         v_act_next,
         dm_std_t,
-        spot[None, :],
-        w_bf,
-        dci,
-        a[..., None],
-        b[..., None],
+        spot,
+        jnp.transpose(ci, (2, 0, 1)).astype(dtype),  # [D, B, G]
+        idx_lo.T.astype(jnp.int32),
+        w_hi.T.astype(dtype),
+        a.T.astype(dtype),
+        b.T.astype(dtype),
     )
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("monomials", "sim_tile", "interpret", "pred_passes"),
-)
-def decision_update_moments_pallas(
-    v_act_next: jnp.ndarray,   # [G, S] f32
-    spot: jnp.ndarray,         # [S] f32 step-t spot
-    factors: jnp.ndarray,      # [F, S] f32 step-t factors
-    spot_prev: jnp.ndarray,    # [S] f32 step-(t-1) spot
-    factors_prev: jnp.ndarray, # [F, S] f32 step-(t-1) factors
-    mean: jnp.ndarray,         # [B] step-t design-matrix column means
-    std: jnp.ndarray,          # [B] step-t design-matrix column stds
-    w: jnp.ndarray,            # [D, G, G] interp-weight matrices (snapped)
-    ci: jnp.ndarray,           # [D, G, B] interpolated regression coeffs
-    a: jnp.ndarray,            # [D, G]
-    b: jnp.ndarray,            # [D, G]
-    monomials,
-    sim_tile: int,
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def decision_update(
+    v_act_next: jnp.ndarray,  # [G_next, S] next-period actual values
+    dm_std_t: jnp.ndarray,    # [B, S] standardised design matrix
+    spot: jnp.ndarray,        # [S]
+    ci: jnp.ndarray,          # [B, G, D] coefficients at the target inventories
+    idx_lo: jnp.ndarray,      # [G, D] lower next-grid index of each target
+    w_hi: jnp.ndarray,        # [G, D] weight of row idx_lo + 1
+    a: jnp.ndarray,           # [G, D] immediate-pv spot coefficient
+    b: jnp.ndarray,           # [G, D] immediate-pv constant
     interpret: bool = False,
-    pred_passes: int = 2,
-):
-    """Fused decision update + next-step regression moments.
-
-    Returns (best_act [G, S], xtx_u [B, B], xty_u [B, G]) where the moments
-    are of step t-1's design matrix CENTRED/SCALED by this step's
-    (mean, std) — i.e. of u = (x - mean)/std — against best_act.  The caller
-    recovers the exactly-standardised system with
-    ``regression.standardise_moments`` and composes the affine transform
-    (mean_{t-1} = mean + std·μ_u, std_{t-1} = std·σ_u)."""
-    g, s = v_act_next.shape
-    b_dim = len(monomials)
-    f_dim = factors.shape[0]
-    d = w.shape[0]
-    grid = (s // sim_tile,)
-    # Enforce the snapped-weight contract (see decision_update_pallas).
-    w_bf = snap_weights(w).astype(jnp.bfloat16)
-    dci = ci - ci[0:1]
-    best_act, xtx, xty_t = pl.pallas_call(
-        functools.partial(
-            _kernel_moments, monomials=tuple(monomials), num_decisions=d,
-            pred_passes=pred_passes,
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((g, s), v_act_next.dtype),
-            jax.ShapeDtypeStruct((b_dim, b_dim), v_act_next.dtype),
-            jax.ShapeDtypeStruct((g, b_dim), v_act_next.dtype),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((g, sim_tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, sim_tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((f_dim, sim_tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, sim_tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((f_dim, sim_tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((b_dim, 1), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((b_dim, 1), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d, g, g), lambda i: (0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d, g, b_dim), lambda i: (0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d, g, 1), lambda i: (0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d, g, 1), lambda i: (0, 0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((g, sim_tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((b_dim, b_dim), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((g, b_dim), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * g * s * (g * d + b_dim * (d - 1) + b_dim)
-            + 2 * b_dim * b_dim * s,
-            bytes_accessed=4 * s * (2 * g + 2 * (f_dim + 1)),
-            transcendentals=0,
-        ),
-        # In-place value-panel update (see decision_update_pallas); measured
-        # +4.7%/step on the moments kernel, bit-identical.
-        input_output_aliases={0: 0},
-        interpret=interpret,
-    )(
-        v_act_next,
-        spot[None, :],
-        factors,
-        spot_prev[None, :],
-        factors_prev,
-        mean[:, None],
-        std[:, None],
-        w_bf,
-        dci,
-        a[..., None],
-        b[..., None],
+) -> jnp.ndarray:
+    """``best_act`` [G, S]: the same values as the XLA body's decision loop."""
+    return pallas_update(
+        v_act_next, dm_std_t, spot, ci, idx_lo, w_hi, a, b,
+        interpret=interpret, block=block_shape(idx_lo.shape[1]),
     )
-    return best_act, xtx, xty_t.T
 
 
-def interp_weight_matrix(idx_lo: jnp.ndarray, w_hi: jnp.ndarray, g_next: int,
-                         dtype) -> jnp.ndarray:
-    """Dense [D, G, G_next] linear-interpolation operator from per-(g, d) lower
-    indices and lerp weights: row (d, g) has ``1-w`` at ``idx_lo`` and ``w`` at
-    ``idx_lo + 1`` so that ``W[d] @ values`` equals clamped linear interpolation.
-
-    Rows sum to exactly 1 (the two weights are exact f32 complements), so the
-    matmul preserves constant value levels."""
-    eye = jnp.eye(g_next, dtype=dtype)
-    w_mat = eye[idx_lo] * (1.0 - w_hi[..., None]) + eye[idx_lo + 1] * w_hi[..., None]
-    return jnp.swapaxes(w_mat, 0, 1)  # [G, D, G_next] -> [D, G, G_next]
-
-
-# --------------------------------------------------------------- kernel v5
-#
-# Self-contained backward step: the carry-dependent "glue" between kernel
-# invocations (moment standardisation, trace-ridge Cholesky solve,
-# coefficient interpolation — ops/regression + engines/lsmc._interp_coeffs)
-# measured ~74 us/step of sequential small-op XLA latency.  Folding it into
-# a tile-0 prologue of the kernel replaces that chain with a few microseconds
-# of in-register VPU code, leaving the backward scan body kernel-only
-# (VERDICT r03 item 2's "move into the kernel epilogue").  Single-device
-# only: sharded runs psum the moments between steps, which a kernel cannot
-# do — the engine gates on axis_name is None.
-
-
-def _bcast2(x, shape):
-    """Broadcast a (1,1)/(r,1)/(1,c) value to (r,c) without a double-axis
-    ``vector.broadcast`` (Mosaic: "Not implemented: Broadcast in both
-    sublanes and lanes").  For the scalar case the two stages are separated
-    by a multiply with a constant ones matrix so the compiler cannot fold
-    them back into one dynamic broadcast."""
-    r, c = shape
-    if x.shape == (1, 1) and r > 1 and c > 1:
-        col = jnp.broadcast_to(x, (r, 1))
-        return col * jnp.ones((r, c), x.dtype)
-    if x.shape[0] != r:
-        x = jnp.broadcast_to(x, (r, x.shape[1]))
-    if x.shape[1] != c:
-        x = jnp.broadcast_to(x, (r, c))
-    return x
-
-
-def _outer(col, row):
-    """col [R,1] * row [1,C] -> [R,C] via staged broadcasts."""
-    shape = (col.shape[0], row.shape[1])
-    return _bcast2(col, shape) * _bcast2(row, shape)
-
-
-def _prologue_solve(xtx_u, xty_u, c_row, s_row, *, ridge: float):
-    """In-register equivalent of ``regression.standardise_moments`` +
-    ``fit_from_moments`` + the affine composition of the fused backward body.
-
-    ``xtx_u`` [B, B], ``xty_u`` [B, G]: raw moments of u = (x − mean)/std
-    centred by the previous step's composed stats ``(c_row, s_row)`` [1, B].
-    Returns (mean_row [1, B], std_row [1, B], coeffs [B, G]) with coeffs in
-    the exactly-standardised z-space (consistent with a design matrix
-    standardised by the composed stats).  Static-B unrolled; all values live
-    in vector registers, with rank-0 scalar extracts wherever a value must
-    splat across both vector axes (Mosaic cannot broadcast a (1,1) vector in
-    sublanes and lanes at once)."""
-    f32 = jnp.float32
-    b = xtx_u.shape[0]
-    n_s = xtx_u[0, 0]  # rank-0 scalar
-    mu_true = xtx_u[0:1, :] / n_s  # [1, B]
-    col_idx = jax.lax.broadcasted_iota(jnp.int32, (1, b), 1)
-    eye = (
-        jax.lax.broadcasted_iota(jnp.int32, (b, b), 0)
-        == jax.lax.broadcasted_iota(jnp.int32, (b, b), 1)
-    )
-    ex2 = jnp.sum(jnp.where(eye, xtx_u, 0.0), axis=0, keepdims=True) / n_s
-    mean_u = jnp.where(col_idx == 0, 0.0, mu_true)
-    var = jnp.maximum(ex2 - mean_u * mean_u, 0.0)
-    std_u = jnp.sqrt(var)
-    std_u = jnp.where(std_u > 0, std_u, 1.0)
-    std_u = jnp.where(col_idx == 0, 1.0, std_u)
-
-    # n folded into the left factor keeps every broadcast single-axis.
-    m = (xtx_u - _outer(n_s * mu_true.T, mu_true)) / _outer(std_u.T, std_u)
-    corner = (jax.lax.broadcasted_iota(jnp.int32, (b, b), 0) == 0) & (
-        jax.lax.broadcasted_iota(jnp.int32, (b, b), 1) == 0
-    )
-    m = jnp.where(corner, n_s, m)
-    g_dim = xty_u.shape[1]
-    xty = (xty_u - _outer(mean_u.T, xty_u[0:1, :])) / _bcast2(std_u.T, (b, g_dim))
-
-    # Trace-scaled ridge (regression.fit_from_moments).
-    trace_s = jnp.sum(jnp.where(eye, m, 0.0))  # rank-0
-    m = m + ((ridge / b) * trace_s) * eye.astype(f32)
-
-    # Unrolled column Cholesky (lower L).
-    a = m
-    row_idx = jax.lax.broadcasted_iota(jnp.int32, (b, 1), 0)
-    cols = []
-    for j in range(b):
-        piv = jnp.sqrt(a[j, j])  # rank-0
-        col = a[:, j : j + 1] / piv  # [B, 1]
-        col = jnp.where(row_idx >= j, col, 0.0)
-        cols.append(col)
-        a = a - _outer(col, col.T)  # rank-1 downdate, [B, B]
-    l_mat = jnp.concatenate(cols, axis=1)  # [B, B]
-
-    # Forward then back substitution on the [B, G] right-hand side.
-    ys = []
-    for i in range(b):
-        acc = xty[i : i + 1, :]
-        for k in range(i):
-            acc = acc - l_mat[i, k] * ys[k]
-        ys.append(acc / l_mat[i, i])
-    xs = [None] * b
-    for i in range(b - 1, -1, -1):
-        acc = ys[i]
-        for k in range(i + 1, b):
-            acc = acc - l_mat[k, i] * xs[k]
-        xs[i] = acc / l_mat[i, i]
-    coeffs = jnp.concatenate(xs, axis=0)  # [B, G]
-
-    # Constant-column fallback on a failed solve (fit_from_moments).
-    mean_y = xty[0:1, :] / m[0, 0]
-    fb_row = _bcast2(
-        jax.lax.broadcasted_iota(jnp.int32, (b, 1), 0) == 0, coeffs.shape
-    )
-    fallback = jnp.where(fb_row, _bcast2(mean_y, coeffs.shape), 0.0)
-    ok_s = jnp.all(jnp.isfinite(coeffs))  # rank-0 bool
-    coeffs = jnp.where(ok_s, coeffs, fallback)
-
-    # Affine composition back to x-coordinates (fused_body):
-    # mean_{t-1} = c + s·mu_u, std_{t-1} = s·sig_u.
-    mean_row = c_row + s_row * mean_u
-    std_row = s_row * std_u
-    return mean_row, std_row, coeffs
-
-
-def _kernel_fullstep(v_ref, spot_ref, fac_ref, spot_prev_ref, fac_prev_ref,
-                     xtx_ref, xty_ref, cmean_ref, cstd_ref,
-                     w_ref, a_ref, b_ref,
-                     out_ref, xtx_out_ref, xty_t_out_ref,
-                     mean_out_ref, std_out_ref, coeffs_out_ref,
-                     dci_scr, mean_scr, std_scr,
-                     *, monomials, num_decisions: int, pred_passes: int,
-                     ridge: float):
-    """``_kernel_moments`` with the inter-step glue folded into a tile-0
-    prologue: standardise the carried raw moments, solve for the regression
-    coefficients, interpolate them to every (grid, decision) target through
-    the SAME snapped hat operator the value interpolation uses, and stash
-    the results in VMEM scratch for the remaining sim tiles."""
-    f32 = jnp.float32
-
-    @pl.when(pl.program_id(0) == 0)
-    def _prologue():
-        mean_row, std_row, coeffs = _prologue_solve(
-            xtx_ref[...], xty_ref[...], cmean_ref[...], cstd_ref[...],
-            ridge=ridge,
-        )
-        mean_scr[...] = mean_row
-        std_scr[...] = std_row
-        mean_out_ref[...] = mean_row
-        std_out_ref[...] = std_row
-        coeffs_out_ref[...] = coeffs
-        # ci[d] = W[d] @ coeffsᵀ (the coefficient-space interpolation,
-        # engines/lsmc._interp_coeffs, on the snapped quadrature); centred
-        # gaps dci[d] = ci[d] − ci[0].  Split-precision 2-pass: W is exactly
-        # bf16, coeffs split hi+lo — error ~2⁻¹⁶ relative, matching the
-        # pred-gap quadrature the kernel already uses.
-        ct = coeffs.T  # [G_next, B]
-        ct_hi, ct_lo = _split_bf16(ct)
-        ci0 = None
-        for d in range(num_decisions):
-            ci_d = (
-                jnp.dot(w_ref[d], ct_hi, preferred_element_type=f32)
-                + jnp.dot(w_ref[d], ct_lo, preferred_element_type=f32)
-            )  # [G, B]
-            if d == 0:
-                ci0 = ci_d
-                dci_scr[0] = jnp.zeros_like(ci_d)
-            else:
-                dci_scr[d] = ci_d - ci0
-
-    v = v_ref[...]        # [G, St]
-    spot = spot_ref[...]  # [1, St]
-    mean_col = mean_scr[...].T  # [B, 1]
-    std_col = std_scr[...].T
-    dm = _build_design_rows(monomials, spot, fac_ref[...])  # [B, St] raw
-    dm = (dm - mean_col) / std_col
-    v_hi, v_lo = _split_bf16(v)
-    if pred_passes >= 2:
-        dm_hi, dm_lo = _split_bf16(dm)
-
-    def hat(d):
-        w_bf = w_ref[d]
-        return (
-            jnp.dot(w_bf, v_hi, preferred_element_type=f32)
-            + jnp.dot(w_bf, v_lo, preferred_element_type=f32)
-        )
-
-    b_dim = dm.shape[0]
-    imm0 = a_ref[0] * spot + b_ref[0]
-    best_reg = imm0
-    best_act = hat(0) + imm0
-    for d in range(1, num_decisions):
-        if pred_passes >= 3:
-            dci_hi, dci_lo = _split_bf16(dci_scr[d])
-            q = _dot3(dci_hi, dci_lo, dm_hi, dm_lo)
-        elif pred_passes == 2:
-            dci_hi, _ = _split_bf16(dci_scr[d])
-            q = (
-                jnp.dot(dci_hi, dm_hi, preferred_element_type=f32)
-                + jnp.dot(dci_hi, dm_lo, preferred_element_type=f32)
-            )
-        else:
-            q = _vpu_pred_gap(dci_scr[d], dm, b_dim)
-        imm = a_ref[d] * spot + b_ref[d]
-        vr = q + imm
-        va = hat(d) + imm
-        better = vr > best_reg
-        best_reg = jnp.where(better, vr, best_reg)
-        best_act = jnp.where(better, va, best_act)
-    out_ref[...] = best_act
-
-    dmp = _build_design_rows(monomials, spot_prev_ref[...], fac_prev_ref[...])
-    dmp = (dmp - mean_col) / std_col
-    cols = []
-    for i in range(b_dim):
-        cols.append(jnp.sum(dmp[i : i + 1] * dmp, axis=1, keepdims=True))
-    xtx_partial = jnp.concatenate(cols, axis=1)
-    xty_cols = []
-    for i in range(b_dim):
-        xty_cols.append(
-            jnp.sum(best_act * dmp[i : i + 1], axis=1, keepdims=True)
-        )
-    xty_t_partial = jnp.concatenate(xty_cols, axis=1)
-
-    @pl.when(pl.program_id(0) == 0)
-    def _init():
-        xtx_out_ref[...] = jnp.zeros_like(xtx_out_ref)
-        xty_t_out_ref[...] = jnp.zeros_like(xty_t_out_ref)
-
-    xtx_out_ref[...] += xtx_partial
-    xty_t_out_ref[...] += xty_t_partial
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("monomials", "sim_tile", "interpret", "pred_passes"),
-)
-def decision_update_fullstep_pallas(
-    v_act_next: jnp.ndarray,   # [G, S] f32
-    spot: jnp.ndarray,         # [S] f32
-    factors: jnp.ndarray,      # [F, S] f32
-    spot_prev: jnp.ndarray,    # [S] f32
-    factors_prev: jnp.ndarray, # [F, S] f32
-    xtx_u: jnp.ndarray,        # [B, B] carried raw moments (u-coords)
-    xty_u: jnp.ndarray,        # [B, G] carried
-    cmean: jnp.ndarray,        # [B] previous composed column means
-    cstd: jnp.ndarray,         # [B] previous composed column stds
-    w: jnp.ndarray,            # [D, G, G] snapped interp-weight matrices
-    a: jnp.ndarray,            # [D, G]
-    b: jnp.ndarray,            # [D, G]
-    monomials,
-    sim_tile: int,
-    interpret: bool = False,
-    pred_passes: int = 2,
-):
-    """Fused FULL backward step (kernel v5): glue + decision update + next
-    moments in one pallas_call.  Returns (best_act [G, S], xtx_next [B, B],
-    xty_next [B, G], mean [B], std [B], coeffs [B, G]) — the scan body is
-    this call alone.  Single-device only (no moments psum)."""
-    g, s = v_act_next.shape
-    b_dim = len(monomials)
-    f_dim = factors.shape[0]
-    d = w.shape[0]
-    grid = (s // sim_tile,)
-    ridge = 1e-5 if v_act_next.dtype == jnp.float32 else 1e-7
-    w_bf = snap_weights(w).astype(jnp.bfloat16)
-    full = lambda shape: pl.BlockSpec(shape, lambda i: (0,) * len(shape))
-    tile = lambda rows: pl.BlockSpec((rows, sim_tile), lambda i: (0, i))
-    best_act, xtx, xty_t, mean_row, std_row, coeffs = pl.pallas_call(
-        functools.partial(
-            _kernel_fullstep, monomials=tuple(monomials), num_decisions=d,
-            pred_passes=pred_passes, ridge=ridge,
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((g, s), v_act_next.dtype),
-            jax.ShapeDtypeStruct((b_dim, b_dim), v_act_next.dtype),
-            jax.ShapeDtypeStruct((g, b_dim), v_act_next.dtype),
-            jax.ShapeDtypeStruct((1, b_dim), v_act_next.dtype),
-            jax.ShapeDtypeStruct((1, b_dim), v_act_next.dtype),
-            jax.ShapeDtypeStruct((b_dim, g), v_act_next.dtype),
-        ),
-        grid=grid,
-        in_specs=[
-            tile(g),
-            tile(1),
-            tile(f_dim),
-            tile(1),
-            tile(f_dim),
-            full((b_dim, b_dim)),
-            full((b_dim, g)),
-            full((1, b_dim)),
-            full((1, b_dim)),
-            full((d, g, g)),
-            full((d, g, 1)),
-            full((d, g, 1)),
-        ],
-        out_specs=(
-            tile(g),
-            full((b_dim, b_dim)),
-            full((g, b_dim)),
-            full((1, b_dim)),
-            full((1, b_dim)),
-            full((b_dim, g)),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((d, g, b_dim), jnp.float32),
-            pltpu.VMEM((1, b_dim), jnp.float32),
-            pltpu.VMEM((1, b_dim), jnp.float32),
-        ],
-        input_output_aliases={0: 0},  # in-place value panel (see above)
-        interpret=interpret,
-    )(
-        v_act_next,
-        spot[None, :],
-        factors,
-        spot_prev[None, :],
-        factors_prev,
-        xtx_u,
-        xty_u,
-        cmean[None, :],
-        cstd[None, :],
-        w_bf,
-        a[..., None],
-        b[..., None],
-    )
-    return best_act, xtx, xty_t.T, mean_row[0], std_row[0], coeffs
+def decision_update_auto(*args):
+    """``decision_update`` compiled for the GPU, or interpreted when a test
+    has asked for it with ``interpret_mode()``."""
+    return decision_update(*args, interpret=interpreting())

@@ -4,7 +4,7 @@ Replaces the reference's per-point bisection + tolerance snapping
 (``StorageHelper.BisectInventorySpace``, StorageHelper.cs:280-314, and
 ``LsmcStorageValuation.InterpolateContinuationValue``, :807-826) with
 searchsorted + gather, which vectorises over grid points, decisions and
-simulations on the VPU.
+simulations.
 """
 from __future__ import annotations
 
@@ -16,8 +16,8 @@ def grid_positions(grid, x):
     """Fractional positions of ``x`` on a *uniform* 1-D ``grid`` [G].
 
     The engines' inventory grids are linspace (``grid.inventory_grids``), so
-    interpolation indices come from arithmetic instead of searchsorted — the
-    binary-search/gather lowering is slow on TPU.  Degenerate grids (all equal)
+    interpolation indices come from arithmetic instead of a searchsorted
+    binary search.  Degenerate grids (all equal)
     map everything to position 0.
     """
     g = grid.shape[0]
@@ -45,10 +45,9 @@ def interp_per_sim(grid, values, x):
     """Linear interpolation of per-sim value rows at per-sim query points.
 
     ``values``: [S, G]; ``x``: [S, D] → [S, D].  Implemented as a hat-weight
-    contraction over the grid axis instead of take_along_axis — per-element
-    minor-axis gathers are an order of magnitude slower on TPU than this
-    [S,D,G]x[S,G] einsum (full-precision passes: the values' magnitude would
-    lose ~3 digits in bf16 operands).
+    contraction over the grid axis (an [S,D,G]x[S,G] einsum at full f32
+    precision: the values' magnitude would lose ~3 digits in reduced-precision
+    operands).
     """
     pos = grid_positions(grid, x)  # [S, D]
     g_idx = jnp.arange(grid.shape[0], dtype=pos.dtype)
@@ -83,7 +82,7 @@ def interp_weights_general(grid, x):
     (clamped; zero-span segments — e.g. the padding of custom/fixed-spacing
     grids — yield weight 0 on their left node).  Same contract as
     ``interp_weights``; index by counting nodes <= x (G is ≤ a few hundred
-    and the vectorised compares beat a searchsorted lowering on TPU)."""
+    so vectorised compares replace a searchsorted binary search)."""
     g = grid.shape[0]
     x_c = jnp.clip(x, grid[0], grid[g - 1])
     idx = jnp.zeros(jnp.shape(x_c), dtype=jnp.int32)
@@ -115,8 +114,8 @@ def interp_vector_general(grid, values, x):
     (clamped).  Supports the reference's fixed-spacing grids, whose last
     segment is truncated at the band upper bound and whose padding repeats
     that bound (zero-span segments yield their left node's value).  Index by
-    counting nodes <= x — G is small for the intrinsic engine, and the
-    vectorised compares beat a searchsorted lowering on TPU."""
+    counting nodes <= x — G is small for the intrinsic engine, so vectorised
+    compares replace a searchsorted binary search."""
     g = grid.shape[0]
     x_c = jnp.clip(x, grid[0], grid[g - 1])
     idx = jnp.zeros(jnp.shape(x_c), dtype=jnp.int32)

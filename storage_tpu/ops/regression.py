@@ -2,7 +2,7 @@
 
 The reference computes a thin-QR pseudo-inverse of the design matrix with MKL
 per backward step (``LsmcStorageValuation.cs:192-197``), which does not shard.
-The TPU-native formulation standardises the basis columns (the normalisation
+This formulation standardises the basis columns (the normalisation
 the reference lists as a TODO at LsmcStorageValuation.cs:189) and solves the
 normal equations with a Cholesky factorisation:
 
@@ -26,16 +26,31 @@ def _psum(x, axis_name: tp.Optional[str]):
     return x if axis_name is None else jax.lax.psum(x, axis_name)
 
 
+def _pmax(x, axis_name: tp.Optional[str]):
+    return x if axis_name is None else jax.lax.pmax(x, axis_name)
+
+
 def column_stats(x, axis_name: tp.Optional[str] = None):
     """Global mean/std of design-matrix columns [S, B] across path shards.
 
     The constant column (index 0) keeps mean 0 / std 1 so standardisation
-    leaves it intact.
+    leaves it intact.  A column that holds one value on every path (every
+    state column on the valuation date) standardises to exactly zero: its
+    mean is that value and its std 1.  The rounded mean of a constant column
+    is off by a few ulps, which would otherwise leave a std of a few ulps
+    and blow that rounding up to an O(1) column — a column whose sign then
+    hangs on the last bit of the forward pass's own spot.
     """
     s_local = x.shape[0]
     count = _psum(jnp.asarray(s_local, x.dtype), axis_name)
     col_sum = _psum(jnp.sum(x, axis=0), axis_name)
     mean = col_sum / count
+    x_const = jax.lax.stop_gradient(x)  # a value fix-up; AD keeps the mean's rule
+    col_max = _pmax(jnp.max(x_const, axis=0), axis_name)
+    constant = col_max == -_pmax(-jnp.min(x_const, axis=0), axis_name)
+    mean = mean + jnp.where(
+        constant, col_max - jax.lax.stop_gradient(mean), 0.0
+    )
     col_sq = _psum(jnp.sum((x - mean) ** 2, axis=0), axis_name)
     std = jnp.sqrt(col_sq / count)
     std = jnp.where(std > 0, std, 1.0)
@@ -44,10 +59,6 @@ def column_stats(x, axis_name: tp.Optional[str] = None):
     mean = jnp.where(first, 0.0, mean)
     std = jnp.where(first, 1.0, std)
     return mean, std
-
-
-def standardise(x, mean, std):
-    return (x - mean) / std
 
 
 def fit_continuation(
@@ -71,8 +82,9 @@ def fit_continuation(
     falls back to the projection on the constant column — the cross-sim mean —
     instead of poisoning the backward scan with NaNs.
     """
-    # precision=HIGHEST: TPU matmuls default to bf16 operand precision, which
-    # is too coarse for the normal-equation moments that set decision quality.
+    # precision=HIGHEST: the GPU's default f32 matmul rounds operands to
+    # TF32 (10-bit mantissa), too coarse for the normal-equation moments
+    # that set decision quality.
     m = _psum(
         jnp.dot(
             x_std.T, x_std,
@@ -90,48 +102,6 @@ def fit_continuation(
         axis_name,
     )
     return fit_from_moments(m, xty, ridge)
-
-
-def standardise_moments(xtx_raw, xty_raw):
-    """Standardised normal-equation system from RAW moments.
-
-    Given ``xtx_raw = XᵀX`` [B, B] and ``xty_raw = XᵀY`` [B, G] of the raw
-    design matrix (column 0 all-ones), returns ``(m, xty, mean, std)`` of the
-    column-standardised system — algebraically identical to standardising X
-    first (two-pass ``column_stats``), derived from the moments alone:
-
-        n = XᵀX[0,0]; μ = XᵀX[0,:]/n; var = diag(XᵀX)/n − μ²
-        X̃ᵀX̃ = D⁻¹(XᵀX − n μμᵀ)D⁻¹;  X̃ᵀY = D⁻¹(XᵀY − μ·(XᵀY)[0,:])
-
-    The one-pass variance subtraction can cancel catastrophically in f32 when
-    a column is nearly deterministic; a wrong-but-positive std only rescales
-    the solve (predictions are invariant to the scaling as long as the same
-    mean/std standardise the design matrix), and the ridge + Cholesky
-    fallback in ``fit_from_moments`` covers genuine singularity, so var is
-    simply clamped at zero.
-    """
-    b = xtx_raw.shape[0]
-    n = xtx_raw[0, 0]
-    # True column means — mu_true[0] == 1 (the constant column), which is
-    # what the bilinear subtraction needs so that row/column 0 of the
-    # standardised Gram matrix comes out exactly 0 (X̃_0 stays the raw
-    # constant, every other X̃_j has mean 0).
-    mu_true = xtx_raw[0] / n
-    ex2 = jnp.diagonal(xtx_raw) / n
-    first = jnp.arange(b) == 0
-    mean = jnp.where(first, 0.0, mu_true)
-    var = ex2 - mean**2
-    std = jnp.sqrt(jnp.maximum(var, 0.0))
-    std = jnp.where(std > 0, std, 1.0)
-    std = jnp.where(first, 1.0, std)
-    m = (xtx_raw - n * mu_true[:, None] * mu_true[None, :]) / (
-        std[:, None] * std[None, :]
-    )
-    # [0, 0] = n - n·1·1 under the subtraction; the constant column's true
-    # sum of squares is n.
-    m = m.at[0, 0].set(n)
-    xty = (xty_raw - mean[:, None] * xty_raw[0:1, :]) / std[:, None]
-    return m, xty, mean, std
 
 
 def fit_from_moments(m, xty, ridge: tp.Optional[float] = None):
@@ -156,12 +126,13 @@ def fit_from_moments(m, xty, ridge: tp.Optional[float] = None):
 def predict(x_std, coeffs):
     """Fitted continuation values [S, G] = X_std @ coeffs.
 
-    HIGH precision (bf16 x 3 passes ~ f32): continuation values feed an argmax
-    whose errors behave like extra MC noise, so full HIGHEST passes are not
-    worth the cost on this [S, B] x [B, G] hot matmul.
+    HIGHEST precision: the values feed the forward decision argmax, which
+    compares near-equal continuations; with K = B ≈ 9 the product is cheap
+    on the f32 units, and TF32 rounding would move values by more than the
+    gaps between decisions.
     """
     return jnp.dot(
         x_std, coeffs,
         preferred_element_type=x_std.dtype,
-        precision=jax.lax.Precision.HIGH,
+        precision=jax.lax.Precision.HIGHEST,
     )

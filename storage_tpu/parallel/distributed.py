@@ -41,8 +41,8 @@ def initialize(
 ) -> None:
     """Initialise the multi-process runtime (idempotent).
 
-    With all arguments ``None`` jax auto-detects cluster environments (TPU
-    pods, SLURM, ...); pass ``coordinator_address='host:port'`` +
+    With all arguments ``None`` jax auto-detects cluster environments
+    (SLURM, ...); pass ``coordinator_address='host:port'`` +
     ``num_processes`` + ``process_id`` explicitly otherwise.  Must run before
     the first backend use in every process of the job.
     """

@@ -19,6 +19,7 @@ block, so the full path panel never exists unsharded.
 from __future__ import annotations
 
 import logging
+import os
 import typing as tp
 from functools import partial
 
@@ -37,12 +38,45 @@ AXIS = "paths"
 logger = logging.getLogger("storage_tpu.parallel")
 
 # Streaming auto-select threshold: materialised dual-sim path panels larger
-# than this stream instead (in-scan regeneration).  Materialised is mildly
-# faster when the panels fit (no warmup RNG sweep); streaming is the only way
-# the 1M-path headline config fits one chip.  Override via env var.
-STREAM_THRESHOLD_BYTES = int(
-    __import__("os").environ.get("STORAGE_TPU_STREAM_THRESHOLD_BYTES", 4 << 30)
-)
+# than this stream instead (in-scan regeneration).  Materialised skips the
+# warmup RNG sweep when the panels fit; streaming holds no path panels at
+# all.  The default is a fixed share of the device memory JAX may use (one
+# quarter: the value panel, the engine's temporaries and a second valuation
+# need the rest); where the device reports no limit (the CPU) it is the
+# constant below.  ``STORAGE_TPU_STREAM_THRESHOLD_BYTES`` overrides both.
+STREAM_THRESHOLD_ENV = "STORAGE_TPU_STREAM_THRESHOLD_BYTES"
+STREAM_THRESHOLD_FRACTION = 0.25
+STREAM_THRESHOLD_FALLBACK_BYTES = 4 << 30
+
+
+def default_stream_threshold(device=None) -> int:
+    """Panel bytes above which valuations stream: the env override, else
+    ``STREAM_THRESHOLD_FRACTION`` of the device's ``bytes_limit``, else
+    ``STREAM_THRESHOLD_FALLBACK_BYTES``."""
+    env = os.environ.get(STREAM_THRESHOLD_ENV)
+    if env:
+        return int(env)
+    try:
+        device = device if device is not None else jax.devices()[0]
+        stats = device.memory_stats() or {}
+    except Exception:  # noqa: BLE001 - backends without memory stats
+        stats = {}
+    limit = stats.get("bytes_limit")
+    if not limit:
+        return STREAM_THRESHOLD_FALLBACK_BYTES
+    return int(limit * STREAM_THRESHOLD_FRACTION)
+
+
+# Resolved on first use (reading device memory initialises the backend,
+# which must not happen at import); tests and callers may assign an int.
+STREAM_THRESHOLD_BYTES: tp.Optional[int] = None
+
+
+def stream_threshold_bytes() -> int:
+    global STREAM_THRESHOLD_BYTES
+    if STREAM_THRESHOLD_BYTES is None:
+        STREAM_THRESHOLD_BYTES = default_stream_threshold()
+    return STREAM_THRESHOLD_BYTES
 
 
 def _panel_bytes(num_steps: int, s_local: int, num_factors: int, itemsize: int,
@@ -88,13 +122,14 @@ def _build_out_specs(return_sim_data: bool, return_regression: bool):
 
 def _log_execution(mesh: tp.Optional[Mesh], use_pallas: bool, num_sims: int,
                    stream: bool = False):
-    """Record which execution path a valuation takes (device count + kernel),
-    so a user can tell why a run is slower than the benchmark (the fused
-    Pallas path engages only for f32 on TPU with tile-aligned local sims)."""
+    """Record which execution path a valuation takes (device count, the
+    backward decision body, streamed or materialised paths), so a user can
+    tell why a run is slower than the benchmark (the Pallas decision kernel
+    engages by default only for f32 on a GPU)."""
     n_dev = 1 if mesh is None else mesh.devices.size
     logger.info(
-        "LSMC execution: %d device(s), %d sims, kernel=%s, paths=%s",
-        n_dev, num_sims, "pallas-fused" if use_pallas else "xla",
+        "LSMC execution: %d device(s), %d sims, decision body=%s, paths=%s",
+        n_dev, num_sims, "pallas-triton" if use_pallas else "xla",
         "streamed" if stream else "materialised",
     )
 
@@ -118,7 +153,7 @@ def pad_num_sims(num_sims: int, num_devices: int) -> int:
     static_argnames=(
         "mesh", "s_local", "monomials", "num_extra_decisions", "discount_deltas",
         "terminal_fn", "ratchet_is_step", "antithetic", "same_sims",
-        "return_sim_data", "use_pallas", "pred_passes", "stream", "seg_len",
+        "return_sim_data", "use_pallas", "stream", "seg_len",
         "return_regression",
     ),
 )
@@ -140,14 +175,12 @@ def _sharded_lsmc_jit(
     same_sims: bool,
     return_sim_data: bool,
     use_pallas: bool,
-    pred_passes: int = 2,
     stream: bool = False,
     seg_len: int = 16,
     return_regression: bool = False,
 ):
     # A 1-device mesh needs no collectives: pass axis_name=None so the
-    # engine's psums drop out (identity on one shard either way) and the
-    # single-device-only kernel-v5 backward can engage.
+    # engine's psums drop out (identity on one shard either way).
     eff_axis = AXIS if mesh.devices.size > 1 else None
 
     def shard_fn(arrays, sim_inputs, reg_key, val_key, inv0):
@@ -160,7 +193,7 @@ def _sharded_lsmc_jit(
                 arrays, sim_inputs, reg_key, val_key, path_ids, inv0,
                 monomials, num_extra_decisions, discount_deltas, terminal_fn,
                 ratchet_is_step, axis_name=eff_axis, use_pallas=use_pallas,
-                pred_passes=pred_passes, seg_len=seg_len,
+                seg_len=seg_len,
                 antithetic=antithetic, same_sims=same_sims,
                 return_regression=return_regression,
             )
@@ -181,8 +214,7 @@ def _sharded_lsmc_jit(
             arrays, reg.spot, reg.factors, val.spot, val.factors, inv0,
             monomials, num_extra_decisions, discount_deltas, terminal_fn,
             ratchet_is_step, axis_name=eff_axis, return_sim_data=return_sim_data,
-            use_pallas=use_pallas, pred_passes=pred_passes,
-            return_regression=return_regression,
+            use_pallas=use_pallas, return_regression=return_regression,
         )
 
     out_specs = _build_out_specs(return_sim_data, return_regression)
@@ -214,7 +246,6 @@ def sharded_lsmc_core(
     same_sims: bool = False,
     return_sim_data: bool = False,
     use_pallas: tp.Optional[bool] = None,
-    pred_passes: int = 2,
     stream: tp.Optional[bool] = None,
     seg_len: int = 16,
     return_regression: bool = False,
@@ -241,9 +272,10 @@ def sharded_lsmc_core(
             f"use pad_num_sims."
         )
     s_local = num_sims // n_dev
-    resolved_pallas = lsmc_engine.resolve_use_pallas(
-        use_pallas, s_local, arrays["grids"].dtype
-    ) and not lsmc_engine.has_generic(monomials)
+    resolved_pallas = lsmc_engine._kernel_eligible(
+        lsmc_engine.resolve_use_pallas(use_pallas, arrays["grids"].dtype),
+        monomials,
+    )
     if stream is None:
         n_steps = arrays["grids"].shape[0] - 1
         footprint = _panel_bytes(
@@ -251,7 +283,7 @@ def sharded_lsmc_core(
             jnp.dtype(arrays["grids"].dtype).itemsize,
             num_sets=1 if same_sims else 2,
         )
-        stream = not return_sim_data and footprint > STREAM_THRESHOLD_BYTES
+        stream = not return_sim_data and footprint > stream_threshold_bytes()
     if stream and return_sim_data:
         raise ValueError(
             "Per-sim panels require materialised paths; pass stream=False "
@@ -283,7 +315,6 @@ def sharded_lsmc_core(
         antithetic=antithetic, same_sims=same_sims,
         return_sim_data=return_sim_data,
         use_pallas=resolved_pallas,
-        pred_passes=pred_passes,
         stream=bool(stream), seg_len=seg_len,
         return_regression=return_regression,
     )
@@ -304,14 +335,14 @@ def sim_inputs_from_precompute(pre: SimulationPrecompute, fwd: np.ndarray, dtype
     static_argnames=(
         "mesh", "monomials", "num_extra_decisions", "discount_deltas",
         "terminal_fn", "ratchet_is_step", "return_sim_data", "use_pallas",
-        "return_regression", "pred_passes", "uniform_grids",
+        "return_regression", "uniform_grids",
     ),
 )
 def _sharded_from_sims_jit(
     arrays, spot_reg, factors_reg, spot_val, factors_val, inv0,
     *, mesh, monomials, num_extra_decisions, discount_deltas, terminal_fn,
     ratchet_is_step, return_sim_data, use_pallas, return_regression=False,
-    pred_passes=2, uniform_grids=True,
+    uniform_grids=True,
 ):
     eff_axis = AXIS if mesh.devices.size > 1 else None
 
@@ -321,7 +352,7 @@ def _sharded_from_sims_jit(
             monomials, num_extra_decisions, discount_deltas, terminal_fn,
             ratchet_is_step, axis_name=eff_axis, return_sim_data=return_sim_data,
             use_pallas=use_pallas, return_regression=return_regression,
-            pred_passes=pred_passes, uniform_grids=uniform_grids,
+            uniform_grids=uniform_grids,
         )
 
     out_specs = _build_out_specs(return_sim_data, return_regression)
@@ -352,7 +383,6 @@ def lsmc_core_from_sims(
     use_pallas: tp.Optional[bool] = None,
     mesh: tp.Optional[Mesh] = None,
     return_regression: bool = False,
-    pred_passes: int = 2,
     uniform_grids: bool = True,
 ):
     """LSMC over pre-simulated path panels ([N+1, S] / [N+1, F, S]), sharding
@@ -371,6 +401,10 @@ def lsmc_core_from_sims(
         if len(devices) > 1 and num_sims % len(devices) == 0:
             mesh = make_mesh()
     inv0 = jnp.asarray(starting_inventory, arrays["grids"].dtype)
+    resolved_pallas = lsmc_engine._kernel_eligible(
+        lsmc_engine.resolve_use_pallas(use_pallas, arrays["grids"].dtype),
+        monomials, uniform_grids,
+    )
     if multiprocess:
         # Host-replicated inputs must become global arrays to feed a jit that
         # spans processes; sim panels are expected to be globally sharded
@@ -395,28 +429,14 @@ def lsmc_core_from_sims(
                 f"num_sims ({num_sims}) must be a multiple of the global "
                 f"mesh size in multi-process runs; use pad_num_sims."
             )
-        resolved_pallas = (
-            lsmc_engine.resolve_use_pallas(
-                use_pallas, num_sims, arrays["grids"].dtype
-            )
-            and uniform_grids
-            and not lsmc_engine.has_generic(monomials)
-        )
         _log_execution(None, resolved_pallas, num_sims)
         return lsmc_engine.lsmc_core(
             arrays, spot_reg, factors_reg, spot_val, factors_val, inv0,
             monomials, num_extra_decisions, discount_deltas, terminal_fn,
             ratchet_is_step, axis_name=None, return_sim_data=return_sim_data,
             use_pallas=resolved_pallas,
-            return_regression=return_regression,
-            pred_passes=pred_passes, uniform_grids=uniform_grids,
+            return_regression=return_regression, uniform_grids=uniform_grids,
         )
-    s_local = num_sims // mesh.devices.size
-    resolved_pallas = (
-        lsmc_engine.resolve_use_pallas(use_pallas, s_local, arrays["grids"].dtype)
-        and uniform_grids
-        and not lsmc_engine.has_generic(monomials)
-    )
     _log_execution(mesh, resolved_pallas, num_sims)
     return _sharded_from_sims_jit(
         arrays, spot_reg, factors_reg, spot_val, factors_val, inv0,
@@ -425,8 +445,7 @@ def lsmc_core_from_sims(
         terminal_fn=terminal_fn, ratchet_is_step=ratchet_is_step,
         return_sim_data=return_sim_data,
         use_pallas=resolved_pallas,
-        return_regression=return_regression,
-        pred_passes=pred_passes, uniform_grids=uniform_grids,
+        return_regression=return_regression, uniform_grids=uniform_grids,
     )
 
 
@@ -435,17 +454,17 @@ def lsmc_core_from_sims(
     static_argnames=(
         "mesh", "s_local", "monomials", "num_extra_decisions",
         "discount_deltas", "terminal_fn", "ratchet_is_step", "seg_len",
-        "antithetic", "same_sims", "use_pallas", "pred_passes",
+        "antithetic", "same_sims", "use_pallas",
     ),
 )
 def _sharded_ad_deltas_jit(
     arrays, sim_inputs, reg_key, val_key, inv0,
     *, mesh, s_local, monomials, num_extra_decisions, discount_deltas,
     terminal_fn, ratchet_is_step, seg_len=16, antithetic=False,
-    same_sims=False, use_pallas=False, pred_passes=2,
+    same_sims=False, use_pallas=False,
 ):
     # eff_axis: a 1-device mesh needs no collectives (matches the other
-    # jit wrappers; also lets the single-device-only fullstep kernel engage).
+    # jit wrappers).
     eff_axis = AXIS if mesh.devices.size > 1 else None
 
     def shard_fn(arrays, sim_inputs, reg_key, val_key, inv0):
@@ -456,7 +475,7 @@ def _sharded_ad_deltas_jit(
             monomials, num_extra_decisions, discount_deltas, terminal_fn,
             ratchet_is_step, axis_name=eff_axis, seg_len=seg_len,
             antithetic=antithetic, same_sims=same_sims,
-            use_pallas=use_pallas, pred_passes=pred_passes,
+            use_pallas=use_pallas,
         )
         # Both are pmean-reduced across shards inside the engine function
         # (the gradient is computed collective-free per shard and averaged
@@ -490,12 +509,11 @@ def sharded_ad_deltas(
     seg_len: int = 16,
     antithetic: bool = False,
     same_sims: bool = False,
-    pred_passes: int = 2,
 ):
     """Path-sharded adjoint-delta sweep: streamed sims + segment remat per
     shard (lsmc_npv_and_ad_deltas_streamed), gradients psum'd across the
     mesh.  Memory per shard is bounded by segment-boundary carries
-    ([N/seg_len, G, S_local]) — usable at bench scale (VERDICT r02 item 3).
+    ([N/seg_len, G, S_local]) — usable at bench scale.
     Returns (npv, deltas [N+1]) replicated."""
     n_dev = mesh.devices.size
     if num_sims % n_dev != 0:
@@ -504,7 +522,7 @@ def sharded_ad_deltas(
         )
     inv0 = jnp.asarray(starting_inventory, arrays["grids"].dtype)
     if len({d.process_index for d in mesh.devices.flat}) > 1:
-        # Multi-process global mesh (VERDICT r03 item 5): inputs are
+        # Multi-process global mesh: inputs are
         # host-replicated by construction; lift them to global arrays so the
         # shard_map spans processes.  Path identity comes from axis_index, so
         # every process differentiates exactly its own global path block and
@@ -524,10 +542,7 @@ def sharded_ad_deltas(
         discount_deltas=discount_deltas, terminal_fn=terminal_fn,
         ratchet_is_step=ratchet_is_step, seg_len=seg_len,
         antithetic=antithetic, same_sims=same_sims,
-        use_pallas=lsmc_engine.resolve_use_pallas(
-            None, num_sims // n_dev, arrays["grids"].dtype
-        ),
-        pred_passes=pred_passes,
+        use_pallas=lsmc_engine.resolve_use_pallas(None, arrays["grids"].dtype),
     )
 
 
@@ -536,13 +551,12 @@ def sharded_ad_deltas(
     static_argnames=(
         "mesh", "monomials", "num_extra_decisions", "discount_deltas",
         "terminal_fn", "ratchet_is_step", "use_pallas", "uniform_grids",
-        "pred_passes",
     ),
 )
 def _sharded_ad_from_sims_jit(
     arrays, spot_reg, factors_reg, spot_val, factors_val, inv0,
     *, mesh, monomials, num_extra_decisions, discount_deltas, terminal_fn,
-    ratchet_is_step, use_pallas, uniform_grids=True, pred_passes=2,
+    ratchet_is_step, use_pallas, uniform_grids=True,
 ):
     eff_axis = AXIS if mesh.devices.size > 1 else None
 
@@ -557,7 +571,7 @@ def _sharded_ad_from_sims_jit(
         _v0, regression = lsmc_engine.lsmc_backward(
             arrays, spot_reg, factors_reg, monomials, num_extra_decisions,
             terminal_fn, ratchet_is_step, eff_axis, use_pallas=use_pallas,
-            uniform_grids=uniform_grids, pred_passes=pred_passes,
+            uniform_grids=uniform_grids,
         )
         regression = jax.tree.map(jax.lax.stop_gradient, regression)
         npv_local, grad_local = lsmc_engine._forward_value_and_grad(
@@ -597,11 +611,10 @@ def sharded_ad_deltas_from_sims(
     ratchet_is_step: bool,
     mesh: tp.Optional[Mesh] = None,
     uniform_grids: bool = True,
-    pred_passes: int = 2,
 ):
     """Adjoint deltas over pre-simulated panels, path-sharded across local
-    devices or a multi-process global mesh (completes the adjoint matrix for
-    multi-host ``value_from_sims_host_local`` panels — VERDICT r04 item 2).
+    devices or a multi-process global mesh (including multi-host
+    ``value_from_sims_host_local`` panels).
     In multi-process runs the panels must already be global arrays
     (distributed.host_local_sims_to_global).  Returns (npv, deltas [N+1])
     replicated."""
@@ -632,16 +645,12 @@ def sharded_ad_deltas_from_sims(
             arrays, stoch_reg, factors_reg, stoch_val, factors_val, inv0,
             monomials, num_extra_decisions, discount_deltas, terminal_fn,
             ratchet_is_step,
-            use_pallas=lsmc_engine.resolve_use_pallas(
-                None, num_sims, arrays["grids"].dtype
-            ),
-            uniform_grids=uniform_grids, pred_passes=pred_passes,
+            use_pallas=lsmc_engine.resolve_use_pallas(None, arrays["grids"].dtype),
+            uniform_grids=uniform_grids,
         )
-    s_local = num_sims // mesh.devices.size
-    resolved_pallas = (
-        lsmc_engine.resolve_use_pallas(None, s_local, arrays["grids"].dtype)
-        and uniform_grids
-        and not lsmc_engine.has_generic(monomials)
+    resolved_pallas = lsmc_engine._kernel_eligible(
+        lsmc_engine.resolve_use_pallas(None, arrays["grids"].dtype),
+        monomials, uniform_grids,
     )
     return _sharded_ad_from_sims_jit(
         arrays, spot_reg, factors_reg, spot_val, factors_val, inv0,
@@ -649,5 +658,5 @@ def sharded_ad_deltas_from_sims(
         num_extra_decisions=num_extra_decisions,
         discount_deltas=discount_deltas, terminal_fn=terminal_fn,
         ratchet_is_step=ratchet_is_step, use_pallas=resolved_pallas,
-        uniform_grids=uniform_grids, pred_passes=pred_passes,
+        uniform_grids=uniform_grids,
     )

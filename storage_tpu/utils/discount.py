@@ -3,7 +3,7 @@
 The reference discounts every cash flow with an Act/365 continuously-compounded
 rate looked up on the cash-flow date (``StorageHelper.cs:251-276``), with the
 settlement date of each delivery period given by a user ``settlement_rule``
-callable (``multi_factor.py:103-105``).  The TPU build precomputes, per active
+callable (``multi_factor.py:103-105``).  This build precomputes, per active
 step, the discount factors needed by the engines so no date logic exists on
 device.
 """

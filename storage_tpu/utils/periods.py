@@ -2,7 +2,7 @@
 
 The reference library builds typed period arithmetic on ``Cmdty.TimePeriodValueTypes``
 (``Day``, ``Month``, ``Hour``, ... — see reference ``utils.py:131-138`` for the freq map).
-The TPU-native design instead keeps pandas ``Period``/``PeriodIndex`` strictly at the API
+This design instead keeps pandas ``Period``/``PeriodIndex`` strictly at the API
 boundary and converts everything to integer step indices plus precomputed ``float64``
 day-count / year-fraction arrays before any device code runs.
 """

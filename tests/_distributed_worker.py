@@ -106,7 +106,7 @@ def main():
         flush=True,
     )
 
-    # Round 4: multi-process ADJOINT deltas (VERDICT r03 item 5) — the
+    # Round 4: multi-process ADJOINT deltas — the
     # collective-free per-shard reverse sweep + explicit pmean on the global
     # mesh.  Same call as RESULT2 but deltas_method='adjoint'; NPV identical
     # (same sims, same policy), deltas must equal the pathwise series.
@@ -123,7 +123,7 @@ def main():
         flush=True,
     )
 
-    # Round 5: multi-process USER-PANELS adjoint (VERDICT r04 item 2) — same
+    # Round 5: multi-process USER-PANELS adjoint — same
     # host-local panel ingestion as RESULT, but deltas_method='adjoint'
     # (parallel.mesh.sharded_ad_deltas_from_sims on the global mesh).  NPV
     # identical to RESULT; deltas must equal RESULT's pathwise series.

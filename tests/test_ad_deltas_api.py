@@ -140,10 +140,9 @@ def test_builder_routes_deltas_method():
 
 
 def test_adjoint_sharded_remat_at_bench_scale_sims():
-    """262,144 sims on the 8-device CPU mesh (VERDICT r02 item 3 done
-    criterion): the sharded, segment-rematerialised adjoint sweep must agree
-    with the pathwise estimator at bench-scale path counts with bounded
-    memory.  Short horizon/small grid keep CPU wall time reasonable — the
+    """262,144 sims on the 8-device CPU mesh: the sharded,
+    segment-rematerialised adjoint sweep must agree with the pathwise
+    estimator at bench-scale path counts with bounded memory.  Short horizon/small grid keep CPU wall time reasonable — the
     scale axis under test is the path count the AD tape must survive."""
     import sys
 
@@ -177,8 +176,7 @@ def test_adjoint_sharded_remat_at_bench_scale_sims():
 
 def test_adjoint_with_nonuniform_grid_calc_matches_pathwise():
     """Non-uniform user grids (general searchsorted+gather interpolation) are
-    fully differentiable: adjoint == pathwise on the same custom grid
-    (VERDICT r04 item 2)."""
+    fully differentiable: adjoint == pathwise on the same custom grid."""
 
     def dense_near_bottom(lo, hi):
         u = np.linspace(0.0, 1.0, 40) ** 2

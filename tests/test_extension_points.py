@@ -1,4 +1,4 @@
-"""Open extension points (VERDICT r03 item 9):
+"""Open extension points:
 
 * user-supplied per-period grids via ``grid_calc`` — the
   ``IDoubleStateSpaceGridCalc.GetGridPoints`` analog
@@ -247,38 +247,3 @@ def test_grid_calc_accepts_raw_arrays():
     with pytest.raises(ValueError, match="one row per period"):
         gridmod.inventory_grids_custom(
             inputs.inventory_lower, inputs.inventory_upper, raw[:3])
-
-
-def test_snap_interp_mismatch_warns():
-    """use_pallas with snap_interp=False diverges the regressed and actual
-    continuation quadratures (the kernel force-snaps) — must warn (ADVICE
-    r03 item 4)."""
-    import warnings
-
-    import jax
-    from storage_tpu.engines import lsmc as lsmc_engine
-    from storage_tpu.models.spot_sim import simulate_ou_paths
-    import sys
-    sys.path.insert(0, __file__.rsplit("/", 1)[0])
-    from test_sharding import build_case
-
-    inputs, arrays, sim_inputs, monomials = build_case()
-    ids = jnp.arange(64)
-    reg = simulate_ou_paths(
-        jax.random.key(1), ids, sim_inputs["decay"], sim_inputs["chol"],
-        sim_inputs["vols"], sim_inputs["half_var"], sim_inputs["fwd"])
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        lsmc_engine.lsmc_backward(
-            arrays, reg.spot, reg.factors, monomials, 0, None, False, None,
-            use_pallas=False, snap_interp=False)
-        assert not any("snaps" in str(w.message) for w in caught)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        try:
-            lsmc_engine.lsmc_backward(
-                arrays, reg.spot, reg.factors, monomials, 0, None, False,
-                None, use_pallas=True, snap_interp=False)
-        except Exception:
-            pass  # the Pallas kernel itself cannot run on CPU; the warning fires first
-        assert any("snaps" in str(w.message) for w in caught)

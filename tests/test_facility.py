@@ -249,3 +249,25 @@ class TestConstraints:
         v = c.inventory_space_upper_bound(0.0, 400.0, 0.0, 1000.0, 0.0)
         rng = c.get_inject_withdraw_range(v)
         assert v + rng.min_inject_withdraw_rate == pytest.approx(400.0, abs=1e-6)
+
+
+class TestEngineTerminalFn:
+    """The engines take the terminal value as a jit static argument, so it
+    must keep its identity across compilations of one facility."""
+
+    def test_user_function_passes_through(self):
+        from storage_tpu.facility import compile_storage
+
+        terminal = lambda price, inv: price * inv  # noqa: E731
+        storage = simple_storage(terminal_storage_npv=terminal)
+        val = pd.Period("2021-01-05", freq="D")
+        first = compile_storage(storage, val).engine_terminal_fn
+        second = compile_storage(storage, val).engine_terminal_fn
+        assert first is terminal and second is terminal
+
+    def test_must_be_empty_has_none(self):
+        from storage_tpu.facility import compile_storage
+
+        compiled = compile_storage(simple_storage(), pd.Period("2021-01-05", freq="D"))
+        assert compiled.must_be_empty_at_end
+        assert compiled.engine_terminal_fn is None

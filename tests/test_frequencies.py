@@ -3,7 +3,7 @@
 ``utils/periods.py:19-27`` advertises 15min / 30min / h / D / M / Q (the
 reference freq map, ``utils.py:131-138``); daily and hourly already appear in
 other tests, so this file drives an intrinsic + LSMC valuation through each of
-the remaining frequencies (VERDICT r1 item 8).  Oracles: near-zero vol LSMC ==
+the remaining frequencies.  Oracles: near-zero vol LSMC ==
 intrinsic (the analytic collapse the reference leans on), plus a two-period
 monthly facility whose intrinsic value is hand-computable.
 """

@@ -1,4 +1,4 @@
-"""Host-streamed user-supplied sim panels (VERDICT r03 item 8).
+"""Host-streamed user-supplied sim panels.
 
 BASELINE.md milestone 5 includes 1M user-supplied sim paths on one chip:
 materialised panels at that scale (~11.7 GB f32) exceed device HBM, so when
@@ -86,7 +86,7 @@ def test_host_streamed_rejects_sim_data(panels, monkeypatch):
 def test_host_streamed_adjoint_matches_pathwise(panels, monkeypatch):
     """Adjoint deltas over host-streamed panels (path-chunked sweep,
     lsmc_ad_deltas_path_chunked): identical to the pathwise series of the
-    materialised run (VERDICT r04 item 2)."""
+    materialised run."""
     val_date, fwd, rates, settle, kwargs = panels
     pathwise = _value(val_date, fwd, rates, settle, kwargs)
 

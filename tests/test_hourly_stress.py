@@ -96,7 +96,7 @@ class TestHourlyLsmc10k:
         assert res.npv == pytest.approx(res.intrinsic_npv, rel=2e-3)
         assert np.isfinite(res.val_sim_standard_error)
         assert len(res.deltas) == len(fwd)
-        # Runtime pin: 10k+ steps end-to-end (compile + run, CPU or TPU)
+        # Runtime pin: 10k+ steps end-to-end (compile + run, CPU or GPU)
         # must stay practical; fails loudly if per-step overhead regresses.
         assert elapsed < 600.0, f"hourly LSMC took {elapsed:.0f}s"
 

@@ -1,4 +1,4 @@
-"""Resolution of the ``numerical_tolerance`` parameter (VERDICT r02 item 6).
+"""Resolution of the ``numerical_tolerance`` parameter.
 
 The reference uses ``numericalTolerance`` in exactly two places:
 
@@ -170,7 +170,7 @@ class TestInterpolationNeedsNoTolerance:
 
 class TestTypedExceptionParity:
     """Constraint-level inverse solvers raise the same typed exception as the
-    band reduction (StorageHelper.cs:101-102; VERDICT r02 item 7)."""
+    band reduction (StorageHelper.cs:101-102)."""
 
     def test_piecewise_linear_inverse_raises_typed(self):
         from storage_tpu import InventoryConstraintsCannotBeFulfilledException

@@ -261,8 +261,7 @@ class TestGenericBasisFunctions:
 
     def test_exp_indicator_basis_within_2_se(self):
         """An exp/indicator basis on a case where both bases are adequate:
-        NPV within 2 MC standard errors of the monomial run (VERDICT r04
-        item 4 acceptance)."""
+        NPV within 2 MC standard errors of the monomial run."""
         from storage_tpu import generic
 
         val_date, fwd, rates, settle = market()

@@ -1,10 +1,10 @@
 """Polynomial ratchets: device-table error control and end-to-end valuations
-(VERDICT r03 item 6; reference PolynomialInjectWithdrawConstraint.cs:35-157).
+(reference PolynomialInjectWithdrawConstraint.cs:35-157).
 
 The reference evaluates the exact fitted polynomial everywhere with robust
 root finding.  This framework's device kernels consume piecewise-linear node
 tables, so the polynomial is sampled adaptively: to float32 exactness of the
-rate scale when that fits the kernel's 129-node budget, else as tightly as
+rate scale when that fits the 129-node budget, else as tightly as
 the budget allows — with the realised error bound computable and asserted
 against measured error here, and end-to-end LSMC + intrinsic valuations
 pinned against a near-exact dense table.

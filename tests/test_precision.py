@@ -4,7 +4,7 @@ The bench and the default API dtype are float32, while the oracle/golden tests
 run float64.  This pins the f32-vs-f64 divergence of the full valuation at a
 mid-size configuration so a precision regression (e.g. a kernel change that
 quietly drops accumulation precision) fails in CI rather than in a future
-benchmark (VERDICT r1, Weak #2).
+benchmark.
 
 Both runs consume the SAME float64-simulated path panels through
 ``value_from_sims`` (the f32 run casts them once on ingestion), so the

@@ -1,5 +1,4 @@
-"""Per-segment progress callbacks and cooperative cancellation (VERDICT r02
-item 5).
+"""Per-segment progress callbacks and cooperative cancellation.
 
 The reference fires ``OnProgressUpdate`` once per backward and forward period
 and polls its CancellationToken at the same granularity
@@ -117,7 +116,7 @@ class TestCancellation:
 
 
 class TestMaterialisedChunked:
-    """VERDICT r03 item 4: per-segment progress/cancellation for materialised
+    """Per-segment progress/cancellation for materialised
     and user-supplied-sims runs (reference per-period polling,
     LsmcStorageValuation.cs:343-345,521)."""
 
@@ -204,7 +203,7 @@ class TestMaterialisedChunked:
 
 
 class TestMultiDeviceChunked:
-    """VERDICT r04 item 6: interactive (host-chunked) execution no longer
+    """Interactive (host-chunked) execution no longer
     costs a multi-device host its sharding — each segment dispatches
     shard_map'd over the local path mesh."""
 

@@ -353,8 +353,8 @@ class TestReadmeBaselines:
 
 
 class TestIntrinsicExactParity:
-    """Per-period intrinsic-profile equality with the reference (VERDICT r02
-    item 8): under ``grid_scheme="fixed_spacing"`` (the reference's
+    """Per-period intrinsic-profile equality with the reference: under
+    ``grid_scheme="fixed_spacing"`` (the reference's
     FixedSpacingStateSpaceGridCalc layout) the DP resolves every within-month
     near-tie identically, so decisions, per-period PVs and the NPV match the
     golden CSVs exactly — not just in aggregate."""

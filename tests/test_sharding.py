@@ -112,17 +112,17 @@ class TestShardCountInvariance:
         assert float(sharded["npv"]) == pytest.approx(float(direct["npv"]), rel=1e-9)
 
     def test_fused_pallas_path_shard_invariant(self):
-        """The fused-moments Pallas backward (interpret mode) under shard_map:
-        the per-step moments psum must make the regression — and therefore
-        every reduced output — invariant to the shard count."""
-        from jax.experimental.pallas import tpu as pltpu
+        """The Pallas decision kernel (interpret mode) under shard_map: the
+        per-step moments psum must make the regression — and therefore every
+        reduced output — invariant to the shard count."""
+        from storage_tpu.ops import decision_kernel
 
         F32 = jnp.float32
 
         def run(n_devices, num_sims=1024):
             inputs, arrays, sim_inputs, monomials = build_case(dtype=F32)
             mesh = pmesh.make_mesh(n_devices)
-            with pltpu.force_tpu_interpret_mode():
+            with decision_kernel.interpret_mode():
                 return pmesh.sharded_lsmc_core(
                     mesh, arrays, sim_inputs,
                     jax.random.key(7), jax.random.key(9), num_sims,
@@ -133,10 +133,10 @@ class TestShardCountInvariance:
                 )
 
         r1, r8 = run(1), run(8)
-        # f32 reduction order differs across shard counts (different tile
-        # widths and psum vs in-kernel accumulation), which can also flip
-        # near-tie decisions on a handful of the 1024 sims; the psum'd moment
-        # path must still agree to f32 accumulation + tie-flip noise.
+        # f32 reduction order differs across shard counts (psum of per-shard
+        # moments), which can also flip near-tie decisions on a handful of
+        # the 1024 sims; the psum'd moment path must still agree to f32
+        # accumulation + tie-flip noise.
         assert float(r8["npv"]) == pytest.approx(float(r1["npv"]), rel=5e-4)
         np.testing.assert_allclose(
             np.asarray(r8["deltas"]), np.asarray(r1["deltas"]), rtol=1e-3,

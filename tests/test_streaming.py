@@ -131,12 +131,12 @@ class TestStreamedEquivalence:
         )
 
     def test_fused_pallas_interpret_equivalent(self):
-        from jax.experimental.pallas import tpu as pltpu
+        from storage_tpu.ops import decision_kernel
 
         F32 = jnp.float32
         inputs, arrays, sim_inputs, monomials = build_case(dtype=F32)
         inv0 = jnp.asarray(inputs.starting_inventory, F32)
-        with pltpu.force_tpu_interpret_mode():
+        with decision_kernel.interpret_mode():
             mat = _run_materialised(
                 arrays, sim_inputs, monomials, inv0, num_sims=256,
                 use_pallas=True,
@@ -175,9 +175,12 @@ class TestShardedStreaming:
     def test_footprint_autoselect_threshold(self):
         from storage_tpu.parallel import mesh as pmesh
 
-        # 2 sets x (N+1) x S x (F+1) x itemsize
-        assert pmesh._panel_bytes(365, 1_048_576, 3, 4) > pmesh.STREAM_THRESHOLD_BYTES
-        assert pmesh._panel_bytes(365, 262_144, 3, 4) < pmesh.STREAM_THRESHOLD_BYTES
+        # 2 sets x (N+1) x S x (F+1) x itemsize; the CPU reports no memory
+        # limit, so the fallback constant applies.
+        threshold = pmesh.default_stream_threshold()
+        assert threshold == pmesh.STREAM_THRESHOLD_FALLBACK_BYTES
+        assert pmesh._panel_bytes(365, 1_048_576, 3, 4) > threshold
+        assert pmesh._panel_bytes(365, 262_144, 3, 4) < threshold
 
 
 class TestStreamingEdgeCoverage:

@@ -1,6 +1,6 @@
 """Tree-engine oracle parity with the reference test suite.
 
-Named counterparts of the reference oracles (VERDICT r1 item 5):
+Named counterparts of the reference oracles:
 
 * ``TreeStorageValuationTest.Calculate_StorageLooksLikeCallOptions_NpvEqualsBlack76``
   — storage contorted into forced-exercise windows priced through the *tree
@@ -20,7 +20,7 @@ Fixtures mirror ``LsmcStorageValuationTest.cs:55-200``: daily storage
 (+ a piecewise-linear ratcheted variant), val date 2019-08-29, inventory
 5,685, sinusoidal forward curve 53.5 + 24.6 sin, flat 5.5% rates, settle 20th
 of next month, 1-factor OU (mean reversion 12.5, vol 0.95), basis 1+s+s**2+s**3.
-All tolerances here are within the 0.5%-slack ceiling of VERDICT item 7 except
+All tolerances here are within a 0.5% slack except
 where the tree's own lattice bias is the binding error (documented inline).
 """
 import math

@@ -10,7 +10,7 @@ stream scatters z around the small in-sample offset; a biased quadrature
 shows as a consistent shift across seeds.
 
 Usage:
-    python tools/golden_health.py                # 8 seeds x 8192 sims (CPU or TPU)
+    python tools/golden_health.py                # 8 seeds x 8192 sims (CPU or GPU)
     SEEDS=16 SIMS=32768 python tools/golden_health.py
 """
 import os
@@ -25,11 +25,9 @@ sys.path.insert(0, os.path.join(
 def main():
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_compile_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from storage_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import numpy as np
     import pandas as pd
 
